@@ -18,9 +18,23 @@ order, and then:
      are zeroed just before this phase and read just after; then times each
      kernel and plain version alone, and K1 under two other ray orders;
   7. renders the golden scene of tests/test_golden.py on the card and checks
-     it against the committed golden thumbnails.
+     it against the committed golden thumbnails;
+  8. shadows: holds K3's three entries (ray_prep, shadow_resolve,
+     map_project) and the shadow-ray K1 launch against their plain versions
+     on all rays, then renders and times the frames shadow="ray",
+     shadow="map" and the full reference frame (map + atlas + sky map),
+     each with the launch counters zeroed just before and read just after,
+     and checks the ray- and map-shadow goldens on the card;
+  9. geometry: holds the segment sampler K4 at K=32 against its plain
+     version on every 16th ray, with and without a step budget, then on all
+     2,073,600 rays without one, and times both there;
+ 10. training: holds K5 (composite forward) and K6 (backward) against their
+     plain versions at 1080p and K=32, runs fit() for 5 Adam steps toward
+     the shadowless frame (counters zeroed just before, read just after),
+     times the geometry pass, one step and the full step, and checks the
+     soft golden on the card.
 
-Every phase prints one line; any failure raises and the script exits
+Every phase prints its lines; any failure raises and the script exits
 nonzero without printing a result.  The line before the last is a JSON
 object with one entry per kernel (times, launches, bounds); the last line is
 {"ok": true, "device": {...}}.  With no CUDA device it exits 1 at once.
@@ -49,6 +63,21 @@ MARCH_OPS_PER_STEP = 73
 # Float operations of K2 per ray (no atlas), counted from csrc/shade.cu:
 # hit point 7, cube normal 44, three lights 3 x ~95, sky or depth ~20.
 SHADE_OPS_PER_RAY = 360
+# K3 per ray, counted from csrc/shadow.cu: ray_prep = hit point 7 + cube
+# normal 44 + start 6; shadow_resolve = point 7 + row 6; map_project = hit
+# point 7 + four rows 24 + divide and sign 9 + uv and texel 8 + compare 3.
+RAY_PREP_OPS = 57
+RESOLVE_OPS = 13
+PROJECT_OPS = 51
+# K4: the march's ops per executed step, plus the extraction per segment
+# (point 6, escape 19, t1 and cursor 3).
+SEGMENT_OPS = 28
+# K5 per valid segment (transcendentals count one each): softplus 5, dl 2,
+# tau 1, alpha 2, prefix 1, T 3, w 1, three sigmoids 9, rgb 6, mid and depth
+# 4, tau sum 1.  K6 per valid segment: the recompute pass 9 and the reverse
+# pass ~60 (forward terms again, G 8, cotangents 8, d sigma 4, albedo 12).
+COMPOSITE_FWD_OPS = 35
+COMPOSITE_BWD_OPS = 69
 
 REF_STEPS = 50_006_052          # roofline_march.json true_ray_steps_per_frame
 REF_HIT_FRAC = 0.642            # docs/PERF_NOTES.md, plain frame
@@ -77,6 +106,24 @@ def bound_ms(nbytes: float, ops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cuda_ms_once(fn):
+    """(ms of one call of fn (no warm-up) by CUDA events, its result)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.numel() == 0:
+        return 0.0
+    return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
 
 
 def simt_efficiency(steps: torch.Tensor) -> float:
@@ -109,8 +156,41 @@ def main() -> int:
         shade_hits,
         shade_hits_plain,
     )
-    from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL
+    from octree_raymarcher_tpu_torch.diff.composite import (
+        COMPOSITE_BWD_KERNEL,
+        COMPOSITE_FWD_KERNEL,
+        SKY,
+        VoxelParams,
+        _composite_bwd_cuda,
+        _composite_fwd_cuda,
+        composite,
+        composite_backward_plain,
+        composite_plain,
+    )
+    from octree_raymarcher_tpu_torch.diff import fit, init_params_from_world, render_soft
+    from octree_raymarcher_tpu_torch.diff.optim import photometric_loss, sample_views
+    from octree_raymarcher_tpu_torch.diff.segments import (
+        SEGMENTS_KERNEL,
+        _sample_segments_plain,
+        sample_segments,
+        sample_segments_plain,
+    )
+    from octree_raymarcher_tpu_torch.shade import shadow as S
+    from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL, _ray_shadow_hits
     from octree_raymarcher_tpu_torch.world.world import World
+
+    counters = {"march": MARCH_KERNEL, "shade": SHADE_KERNEL,
+                "ray_prep": S.RAY_PREP_KERNEL, "shadow_resolve": S.SHADOW_RESOLVE_KERNEL,
+                "map_project": S.MAP_PROJECT_KERNEL, "segments": SEGMENTS_KERNEL,
+                "composite_fwd": COMPOSITE_FWD_KERNEL,
+                "composite_bwd": COMPOSITE_BWD_KERNEL}
+
+    def zero_counts():
+        for k in counters.values():
+            k.launches = 0
+
+    def read_counts() -> dict:
+        return {name: k.launches for name, k in counters.items()}
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -213,14 +293,13 @@ def main() -> int:
     def frame_textured():
         return render_frame(world, O, D, eye, cfg=cfg, atlas=atlas, envmap=env, device=dev)
 
-    MARCH_KERNEL.launches = 0
-    SHADE_KERNEL.launches = 0
+    zero_counts()
     frame_ms = {"plain": cuda_ms(frame_plain, TIMED_ITERS),
                 "textured": cuda_ms(frame_textured, TIMED_ITERS)}
     out = frame_plain()
     out_tex = frame_textured()
     torch.cuda.synchronize()
-    launches = {"march": MARCH_KERNEL.launches, "shade": SHADE_KERNEL.launches}
+    launches = {k: v for k, v in read_counts().items() if k in ("march", "shade")}
     for k, v in launches.items():
         if v == 0:
             fail(f"kernel {k} was not launched by the frame")
@@ -277,6 +356,258 @@ def main() -> int:
         if err > 2e-2:
             fail(f"golden {golden} mismatch")
 
+    # ---- 8. shadows: K3 and the shadow-ray march vs plain, shadowed frames ------
+    ldir = S.light_dir(lights)
+    prep_k = S.ray_prep(rk, O, D, ldir)
+    prep_p = S.ray_prep_plain(rk, O, D, ldir)
+    torch.cuda.synchronize()
+    prep_err = max(max_abs(a, b) for a, b in zip(prep_k, prep_p))
+    if not all(torch.equal(a, b) for a, b in zip(prep_k, prep_p)):
+        fail(f"K3 ray_prep disagrees with ray_prep_plain: max abs err {prep_err}")
+    start, sdirs, live = prep_k
+    sk = march(world, start, sdirs, 512, steps_aov=True, live_start=live, device=dev)
+    sp = march_plain(world, start, sdirs, 512, True, None, live, False)
+    torch.cuda.synchronize()
+    smism = {k: int((~(getattr(sk, k) == getattr(sp, k)).reshape(n, -1).all(dim=1)).sum())
+             for k in ("hit", "t", "material", "texel", "cell_bmin", "cell_size", "steps")}
+    if max(smism.values()) > 0:
+        fail(f"shadow-ray K1 disagrees with march_plain(live_start): {smism}")
+    lorig, ldirs, vp = S._bundle(world, lights, 512, 512, 1.1)
+    lres = march(world, lorig, ldirs, 512, assume_resident=True, device=dev)
+    depth_k = S.shadow_resolve(lorig, ldirs, lres.hit, lres.t, vp)
+    depth_p = S.shadow_resolve_plain(lorig, ldirs, lres.hit, lres.t, vp)
+    depth_map = depth_k.reshape(512, 512)
+    fac_k = S.map_project(rk, O, D, depth_map, vp, cfg.shadow_bias)
+    fac_p = S.map_project_plain(rk, O, D, depth_map, vp, cfg.shadow_bias)
+    torch.cuda.synchronize()
+    resolve_err, project_err = max_abs(depth_k, depth_p), max_abs(fac_k, fac_p)
+    if not (torch.equal(depth_k, depth_p) and torch.equal(fac_k, fac_p)):
+        fail(f"K3 resolve/project disagree with plain: {resolve_err}, {project_err}")
+    print(f"phase 8 K3 vs plain (exact): ray_prep max abs err {prep_err}, shadow_resolve "
+          f"{resolve_err} ({lorig.shape[0]} light rays, hit fraction "
+          f"{float(lres.hit.float().mean()):.4f}), map_project {project_err}; shadow-ray K1 "
+          f"vs march_plain mismatching rays {smism}, shadow-ray steps "
+          f"{int(sk.steps.to(torch.int64).sum())}", flush=True)
+
+    cfg_ray = RenderConfig(shadow="ray", max_steps=512, assume_resident=True)
+    cfg_map = RenderConfig(shadow="map", max_steps=512, assume_resident=True)
+    shadow_frames = {
+        "ray": (lambda: render_frame(world, O, D, eye, cfg=cfg_ray, device=dev),
+                ("march", "ray_prep", "shade")),
+        "map": (lambda: render_frame(world, O, D, eye, cfg=cfg_map, device=dev),
+                ("march", "shadow_resolve", "map_project", "shade")),
+        "full": (lambda: render_frame(world, O, D, eye, cfg=cfg_map, atlas=atlas, envmap=env,
+                                      device=dev),
+                 ("march", "shadow_resolve", "map_project", "shade")),
+    }
+    shadow_ms, shadow_launches = {}, {}
+    for name, (fn, path) in shadow_frames.items():
+        zero_counts()
+        shadow_ms[name] = cuda_ms(fn, TIMED_ITERS)
+        out_s = fn()
+        torch.cuda.synchronize()
+        shadow_launches[name] = {k: v for k, v in read_counts().items() if v}
+        for k in path:
+            if read_counts()[k] == 0:
+                fail(f"kernel {k} was not launched by the {name} frame")
+        if (tuple(out_s["rgb"].shape) != (n, 3)
+                or not bool(torch.isfinite(out_s["rgb"]).all())):
+            fail(f"{name} frame rgb is not finite f32[N,3]")
+        if not torch.equal(out_s["hit"], rk.hit):
+            fail(f"{name} frame hit mask differs from the march's")
+        if name != "full" and not bool((out_s["rgb"] <= out["rgb"] + 1e-6).all()):
+            fail(f"{name} frame is brighter than the shadowless frame somewhere")
+    shadowed = {"ray": _ray_shadow_hits(world, rk, O, D, lights, cfg_ray),
+                "map": S.map_project(rk, O, D, depth_map, vp, cfg.shadow_bias)}
+    shadowed_frac = {k: float(v.mean()) for k, v in shadowed.items()}
+    hit_n = float(rk.hit.float().sum())
+    print(f"phase 8 shadowed frames: ms/frame {shadow_ms}, rays/s "
+          f"{ {k: round(n / (v / 1e3)) for k, v in shadow_ms.items()} }; shadowed pixel "
+          f"fraction {shadowed_frac} (of hit pixels: "
+          f"{ {k: float(v.sum()) / hit_n for k, v in shadowed.items()} }); launches over "
+          f"{TIMED_ITERS + 2} frames each {shadow_launches}", flush=True)
+
+    rp_ms = cuda_ms(lambda: S.ray_prep(rk, O, D, ldir), TIMED_ITERS)
+    rp_plain_ms = cuda_ms(lambda: S.ray_prep_plain(rk, O, D, ldir), 5)
+    rs_ms = cuda_ms(lambda: S.shadow_resolve(lorig, ldirs, lres.hit, lres.t, vp), TIMED_ITERS)
+    rs_plain_ms = cuda_ms(lambda: S.shadow_resolve_plain(lorig, ldirs, lres.hit, lres.t, vp), 5)
+    mp_ms = cuda_ms(lambda: S.map_project(rk, O, D, depth_map, vp, cfg.shadow_bias),
+                    TIMED_ITERS)
+    mp_plain_ms = cuda_ms(lambda: S.map_project_plain(rk, O, D, depth_map, vp,
+                                                      cfg.shadow_bias), 5)
+    sray_ms = cuda_ms(lambda: march(world, start, sdirs, 512, live_start=live, device=dev),
+                      TIMED_ITERS)
+    light_ms = cuda_ms(lambda: march(world, lorig, ldirs, 512, assume_resident=True,
+                                     device=dev), TIMED_ITERS)
+    print(f"phase 8 kernels alone: ray_prep {rp_ms:.4f} ms (plain {rp_plain_ms:.3f}), "
+          f"shadow_resolve {rs_ms:.4f} ms (plain {rs_plain_ms:.3f}), map_project "
+          f"{mp_ms:.4f} ms (plain {mp_plain_ms:.3f}); K1 on the shadow rays {sray_ms:.4f} ms, "
+          f"K1 on the 512x512 light bundle {light_ms:.4f} ms", flush=True)
+
+    for golden, shadow in (("rayshadow_2x1x2_d5", "ray"), ("mapshadow_2x1x2_d5", "map")):
+        rgb = render_frame(gw, go, gd, geye, cfg=RenderConfig(shadow=shadow),
+                           device=dev)["rgb"].cpu().numpy()
+        thumb = rgb.astype(np.float64).reshape(54, 96, 3)[:48, :96].reshape(
+            8, 6, 8, 12, 3).mean(axis=(1, 3))
+        ref = np.load(os.path.join(HERE, "tests", "golden", golden + ".npy"))
+        err = float(np.abs(thumb - ref).max())
+        print(f"phase 8 golden {golden}: max thumbnail error {err:.3g} (limit 2e-2)",
+              flush=True)
+        if err > 2e-2:
+            fail(f"golden {golden} mismatch")
+
+    # ---- 9. geometry: K4 vs plain, K4 over the frame ----------------------------------
+    K = 32
+    Os, Ds = O[::16].contiguous(), D[::16].contiguous()
+    seg_err = 0.0
+    for budget in (None, 96):
+        gk = sample_segments(world, Os, Ds, K, 512, step_budget=budget, device=dev)
+        gp = sample_segments_plain(world, Os, Ds, K, 512, 8, budget, 16)
+        torch.cuda.synchronize()
+        bad = {k: int((getattr(gk, k) != getattr(gp, k)).sum())
+               for k in ("slot", "t0", "t1", "count")}
+        seg_err = max(seg_err, max_abs(gk.t0, gp.t0), max_abs(gk.t1, gp.t1))
+        print(f"phase 9 K4 vs plain (K={K}, step_budget={budget}, {Os.shape[0]} rays): "
+              f"mismatching values {bad}, mean count {float(gk.count.float().mean()):.3f}",
+              flush=True)
+        if any(bad.values()):
+            fail(f"K4 disagrees with sample_segments_plain (budget {budget}): {bad}")
+    seg_ms = cuda_ms(lambda: sample_segments(world, O, D, K, 512, device=dev), 5)
+    segs = sample_segments(world, O, D, K, 512, device=dev)
+    # the plain version over all rays: its time, K4's executed march steps
+    # (for the bound), and K4 held against it on every ray
+    seg_plain_ms, (gp, plain_steps) = cuda_ms_once(
+        lambda: _sample_segments_plain(world, O, D, K, 512))
+    seg_steps = int(plain_steps.sum())
+    bad = {k: int((getattr(segs, k) != getattr(gp, k)).sum())
+           for k in ("slot", "t0", "t1", "count")}
+    if any(bad.values()):
+        fail(f"K4 disagrees with sample_segments_plain on all {n} rays: {bad}")
+    del gp, plain_steps
+    valid = segs.slot >= 0
+    n_valid = int(valid.sum())
+    leaf_slot0 = int(world.twig.shape[0])          # slots >= this are the 8 LEAF slots
+    n_leaf = int((segs.slot >= leaf_slot0).sum())
+    full_frac = float((segs.count == K).float().mean())
+    print(f"phase 9 K4 over the frame: {seg_ms:.4f} ms (plain {seg_plain_ms:.1f} ms), "
+          f"{n_valid} segments (mean {n_valid / n:.3f} per ray; {n_leaf} on the 8 coarse-LEAF "
+          f"slots), fraction of rays at count = K {full_frac:.4f}, executed march steps "
+          f"{seg_steps}; K4 vs plain on all {n} rays: exact", flush=True)
+
+    # ---- 10. training step: K5/K6 vs plain, fit ---------------------------------------
+    params0 = init_params_from_world(world)
+    P = params0.num_slots
+    sky = torch.tensor(SKY, dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        fk = composite(segs, params0)
+    fp = composite_plain(segs.slot, segs.t0, segs.t1, params0.density_raw,
+                           params0.albedo_raw, sky)
+    torch.cuda.synchronize()
+    fwd_err, fwd_bad = 0.0, 0
+    for name, b in zip(("rgb", "depth", "opacity", "weights"), fp):
+        a = fk[name]
+        fwd_err = max(fwd_err, max_abs(a, b))
+        fwd_bad += int(((a - b).abs() > 1e-6 + 1e-5 * b.abs()).sum())
+        if not bool(torch.isfinite(a).all()):
+            fail(f"K5 {name} not finite")
+    print(f"phase 10 K5 vs composite_plain: max abs err {fwd_err}, values beyond "
+          f"1e-6 + 1e-5|plain| {fwd_bad}", flush=True)
+    if fwd_bad:
+        fail("K5 disagrees with composite_plain")
+
+    rng = np.random.default_rng(0)
+    ups = [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dev)
+           for sh in ((n, 3), (n,), (n,), (n, K))]
+    def trainable(p):
+        return VoxelParams(p.density_raw.detach().clone().requires_grad_(True),
+                           p.albedo_raw.detach().clone().requires_grad_(True))
+
+    leaf = trainable(params0)
+    outs = composite(segs, leaf)
+    torch.autograd.backward([outs["rgb"], outs["depth"], outs["opacity"], outs["weights"]],
+                            ups)
+    want = composite_backward_plain(segs.slot, segs.t0, segs.t1, params0.density_raw,
+                                      params0.albedo_raw, sky, 8192.0, *ups)
+    torch.cuda.synchronize()
+    # Tolerance: |K6 - plain| <= 1e-3 |plain| + 1e-5 max|plain| per value.  Both
+    # sum the same per-segment terms, but K6 with atomicAdd in run-to-run order
+    # and the plain version with index_add_ in another; the 8 coarse-LEAF slots
+    # each take millions of terms, so their float32 sums carry order-dependent
+    # rounding near 1e-4 of their magnitude.
+    bwd_err, bwd_bad = 0.0, 0
+    for name, a, b in (("density_raw", leaf.density_raw.grad, want[0]),
+                       ("albedo_raw", leaf.albedo_raw.grad, want[1])):
+        scale_b = float(b.abs().max())
+        bwd_err = max(bwd_err, max_abs(a, b))
+        bwd_bad += int(((a - b).abs() > 1e-3 * b.abs() + 1e-5 * scale_b).sum())
+        print(f"phase 10 K6 vs composite_backward_plain ({name}): max abs err "
+              f"{max_abs(a, b)}, largest |grad| {scale_b}", flush=True)
+    if bwd_bad:
+        fail(f"K6 disagrees with composite_backward_plain on {bwd_bad} values")
+
+    fwd_ms = cuda_ms(lambda: _composite_fwd_cuda(
+        segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0),
+        TIMED_ITERS)
+    fwd_plain_ms = cuda_ms(lambda: composite_plain(
+        segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky), 3)
+    bwd_ms = cuda_ms(lambda: _composite_bwd_cuda(
+        segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0,
+        *ups), TIMED_ITERS)
+    bwd_plain_ms = cuda_ms(lambda: composite_backward_plain(
+        segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0,
+        *ups), 2)
+    fit_bwd_ms = cuda_ms(lambda: _composite_bwd_cuda(
+        segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0,
+        ups[0], None, None, None), TIMED_ITERS)
+    print(f"phase 10 kernels alone: K5 {fwd_ms:.4f} ms (plain {fwd_plain_ms:.2f}), K6 "
+          f"{bwd_ms:.4f} ms with all four upstream gradients, {fit_bwd_ms:.4f} ms with rgb "
+          f"only (plain {bwd_plain_ms:.2f})", flush=True)
+    del ups, leaf, outs, want
+
+    target = out["rgb"]                  # the shadowless hard frame (phase 6)
+    views = [(O, D, target)]
+    zero_counts()
+    _, history = fit(world, views, params0, steps=5, lr=0.05, max_segments=K, device=dev)
+    torch.cuda.synchronize()
+    fit_launches = {k: v for k, v in read_counts().items() if v}
+    for k in ("segments", "composite_fwd", "composite_bwd"):
+        if read_counts()[k] == 0:
+            fail(f"kernel {k} was not launched by fit()")
+    if not all(np.isfinite(history)) or not history[-1] < history[0]:
+        fail(f"fit losses not finite or not falling: {history}")
+    print(f"phase 10 fit (5 Adam steps, lr 0.05, K={K}): losses {history}, launches "
+          f"{fit_launches}", flush=True)
+
+    cached = sample_views(world, views, K, device=dev)
+    p_t = trainable(params0)
+    opt = torch.optim.Adam([p_t.density_raw, p_t.albedo_raw], lr=0.05)
+
+    def fit_step(cached_views):
+        """One step of fit()'s loop."""
+        opt.zero_grad(set_to_none=True)
+        photometric_loss(p_t, cached_views).backward()
+        opt.step()
+
+    step_ms = cuda_ms(lambda: fit_step(cached), 10)
+    full_step_ms = cuda_ms(lambda: fit_step(sample_views(world, views, K, device=dev)), 5)
+    print(f"phase 10 step times: geometry (K4) {seg_ms:.4f} ms, one step on cached "
+          f"segments (K5 + loss + K6 + Adam) {step_ms:.4f} ms, full step (geometry + step) "
+          f"{full_step_ms:.4f} ms; {P} param slots", flush=True)
+    del cached, p_t, opt
+
+    gcam_s = PerspectiveCamera(position=(32.0, 30.0, -20.0), pitch_deg=-20.0, fov_deg=70.0,
+                               width=48, height=27)
+    so, sd = gcam_s.rays()
+    soft = render_soft(gw, init_params_from_world(gw), so, sd, device=dev)["rgb"]
+    thumb = soft.detach().cpu().numpy().astype(np.float64).reshape(27, 48, 3)[:27, :48]
+    thumb = thumb.reshape(3, 9, 3, 16, 3).mean(axis=(1, 3))
+    ref = np.load(os.path.join(HERE, "tests", "golden", "soft_2x1x2_d5.npy"))
+    err = float(np.abs(thumb - ref).max())
+    print(f"phase 10 golden soft_2x1x2_d5: max thumbnail error {err:.3g} (limit 3e-2)",
+          flush=True)
+    if err > 3e-2:
+        fail("golden soft_2x1x2_d5 mismatch")
+
     # ---- result ---------------------------------------------------------------
     ray_io = 24 + 33                     # o, d in; hit t material cell size steps texel out
     k1_bytes = (n * ray_io + packed.tree.nbytes + packed.twig_occ.nbytes
@@ -284,18 +615,45 @@ def main() -> int:
     k2_bytes = n * (49 + 40) + mats.to_matrix().nbytes + 50 * 4
     b1, by1 = bound_ms(k1_bytes, MARCH_OPS_PER_STEP * steps_sum)
     b2, by2 = bound_ms(k2_bytes, SHADE_OPS_PER_RAY * n)
+    n_light = lorig.shape[0]
+    b_rp = bound_ms(n * (45 + 28), RAY_PREP_OPS * n)
+    b_rs = bound_ms(n_light * (29 + 4), RESOLVE_OPS * n_light)
+    b_mp = bound_ms(n * (29 + 4) + depth_map.numel() * 4, PROJECT_OPS * n)
+    pools = (packed.tree.nbytes + packed.twig_occ.nbytes + packed.chunk_bmin.nbytes
+             + 2 * packed.chunk_tree.nbytes)
+    b_seg = bound_ms(n * (24 + 4 + 12 * K) + pools + 4 * (n_valid - n_leaf),
+                     MARCH_OPS_PER_STEP * seg_steps + SEGMENT_OPS * n_valid)
+    touched = int(torch.unique(segs.slot[valid]).numel())
+    b_fwd = bound_ms(n * K * 12 + touched * 16 + n * (20 + 4 * K), COMPOSITE_FWD_OPS * n_valid)
+    b_bwd = bound_ms(n * K * 12 + 2 * touched * 16 + n * (20 + 4 * K) + n * 12,
+                     COMPOSITE_BWD_OPS * n_valid)
+
+    def entry(name, source, replaces, launches_n, err_v, ms, plain, bound):
+        return {"name": name, "route": "cuda",
+                "source": f"octree_raymarcher_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches_n, "max_abs_err": err_v, "ms": ms,
+                "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+                "library_ms": None}
+
+    sl = {k: sum(v.get(k, 0) for v in shadow_launches.values())
+          for k in ("ray_prep", "shadow_resolve", "map_project")}
     report = {"kernels": [
-        {"name": "march", "route": "cuda",
-         "source": "octree_raymarcher_tpu_torch/csrc/march.cu",
-         "replaces": "octree_raymarcher_tpu/ops/march_jnp.py:474",
-         "launches": launches["march"], "max_abs_err": march_err, "ms": k1_ms,
-         "plain_ms": p1_ms, "bound_ms": b1, "bound_by": by1, "library_ms": None},
-        {"name": "shade", "route": "cuda",
-         "source": "octree_raymarcher_tpu_torch/csrc/shade.cu",
-         "replaces": "octree_raymarcher_tpu/shade/render.py:62",
-         "launches": launches["shade"], "max_abs_err": max(shade_err.values()),
-         "ms": k2_ms, "plain_ms": p2_ms, "bound_ms": b2, "bound_by": by2,
-         "library_ms": None},
+        entry("march", "march.cu", "octree_raymarcher_tpu/ops/march_jnp.py:474",
+              launches["march"], march_err, k1_ms, p1_ms, (b1, by1)),
+        entry("shade", "shade.cu", "octree_raymarcher_tpu/shade/render.py:62",
+              launches["shade"], max(shade_err.values()), k2_ms, p2_ms, (b2, by2)),
+        entry("ray_prep", "shadow.cu", "octree_raymarcher_tpu/shade/render.py:139",
+              sl["ray_prep"], prep_err, rp_ms, rp_plain_ms, b_rp),
+        entry("shadow_resolve", "shadow.cu", "octree_raymarcher_tpu/shade/render.py:252",
+              sl["shadow_resolve"], resolve_err, rs_ms, rs_plain_ms, b_rs),
+        entry("map_project", "shadow.cu", "octree_raymarcher_tpu/shade/render.py:364",
+              sl["map_project"], project_err, mp_ms, mp_plain_ms, b_mp),
+        entry("segments", "segments.cu", "octree_raymarcher_tpu/diff/segments.py:96",
+              fit_launches["segments"], seg_err, seg_ms, seg_plain_ms, b_seg),
+        entry("composite_fwd", "composite.cu", "octree_raymarcher_tpu/diff/composite.py:89",
+              fit_launches["composite_fwd"], fwd_err, fwd_ms, fwd_plain_ms, b_fwd),
+        entry("composite_bwd", "composite.cu", "octree_raymarcher_tpu/diff/composite.py:89",
+              fit_launches["composite_bwd"], bwd_err, bwd_ms, bwd_plain_ms, b_bwd),
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

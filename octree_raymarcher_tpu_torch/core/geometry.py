@@ -1,7 +1,8 @@
 """Ray/box geometry for shading, on tensors with a trailing ``(..., 3)`` axis.
 
 PyTorch counterpart of octree_raymarcher_tpu/core/geometry.py
-(``inv_dir``, ``cube_normal``, ``cube_uv``, ``inverse_depth``).  Sums over the
+(``is_inside``, ``inv_dir``, ``escape_distance``, ``enter_distance``,
+``cube_normal``, ``cube_uv``, ``inverse_depth``).  Sums over the
 three components are written out left to right, and divisions by constants
 divide by a tensor, so that these plain versions and the shading kernel
 (csrc/shade.cu) round the same way on the card.
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .constants import EPS, FAR, NEAR
+from .constants import BIGEPS, EPS, FAR, NEAR
 
 
 def const(x: torch.Tensor, c: float) -> torch.Tensor:
@@ -33,6 +34,11 @@ def normalize(v):
     return v / torch.clamp_min(length(v), 1e-12)[..., None]
 
 
+def is_inside(p, cmin, cmax):
+    """True where p lies in the closed box [cmin, cmax]. (...,3) -> (...)."""
+    return ((p >= cmin) & (p <= cmax)).all(dim=-1)
+
+
 def inv_dir(d):
     """Safe reciprocal of a ray direction; zero components map to huge values."""
     eps = 1e-30
@@ -40,6 +46,27 @@ def inv_dir(d):
                        torch.where(d < 0, torch.full_like(d, -eps), torch.full_like(d, eps)),
                        d)
     return 1.0 / safe
+
+
+def escape_distance(p, g, cmin, cmax):
+    """Distance along the ray (direction reciprocal g) from p to exit the box.
+
+    Degenerate results (< EPS, from rays grazing a face) clamp to BIGEPS so a
+    marcher never stalls.  Unlike the march's in-loop escape, nothing is
+    added after the clamp."""
+    t = torch.maximum((cmin - p) * g, (cmax - p) * g)
+    d = t.amin(dim=-1)
+    return torch.where(d < EPS, torch.full_like(d, BIGEPS), d)
+
+
+def enter_distance(p, g, cmin, cmax):
+    """(t_near, hit) slab test for entering the box from outside; ``hit`` is
+    True only when the box is ahead of p and the interval is non-empty."""
+    tmin = (cmin - p) * g
+    tmax = (cmax - p) * g
+    tnear = torch.minimum(tmin, tmax).amax(dim=-1)
+    tfar = torch.maximum(tmin, tmax).amin(dim=-1)
+    return tnear, (tfar > tnear) & (tnear > 0)
 
 
 def cube_normal(p, cmin, cmax):
@@ -80,5 +107,5 @@ def inverse_depth(dist):
     return (1.0 / torch.clamp_min(dist, 1e-6) - inv_near) / const(dist, inv_far - inv_near)
 
 
-__all__ = ["inv_dir", "cube_normal", "cube_uv", "inverse_depth", "dot", "length",
-           "normalize", "const"]
+__all__ = ["is_inside", "inv_dir", "escape_distance", "enter_distance", "cube_normal",
+           "cube_uv", "inverse_depth", "dot", "length", "normalize", "const"]

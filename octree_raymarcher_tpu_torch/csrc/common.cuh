@@ -47,4 +47,35 @@ __device__ __forceinline__ int trunc_clip(float x, float lo, float hi) {
     return (int)fminf(fmaxf(x, lo), hi);
 }
 
+struct V3 { float x, y, z; };
+
+__device__ __forceinline__ V3 ld3(const float* p) { return {__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
+__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
+__device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
+__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ float length(V3 a) { return sqrtf(dot(a, a)); }
+__device__ __forceinline__ V3 normalize(V3 a) {
+    const float l = fmaxf(length(a), 1e-12f);
+    return {a.x / l, a.y / l, a.z / l};
+}
+
+// geometry.cube_normal: the outward face normal of the box face nearest p.
+// float -> int32 saturates, as XLA's convert does.
+__device__ __forceinline__ V3 cube_normal(V3 p, V3 cmin, V3 cmax) {
+    const V3 center = scale(add(cmin, cmax), 0.5f);
+    const V3 half = scale(sub(cmax, cmin), 0.5f);
+    const V3 nr = {(p.x - center.x) / fmaxf(half.x, 1e-30f),
+                   (p.y - center.y) / fmaxf(half.y, 1e-30f),
+                   (p.z - center.z) / fmaxf(half.z, 1e-30f)};
+    const float k = 1.0f + kEps;
+    const V3 q = {truncf(fminf(fmaxf(nr.x * k, -2147483648.0f), 2147483648.0f)),
+                  truncf(fminf(fmaxf(nr.y * k, -2147483648.0f), 2147483648.0f)),
+                  truncf(fminf(fmaxf(nr.z * k, -2147483648.0f), 2147483648.0f))};
+    const float qn = fmaxf(length(q), 1e-12f);
+    return {q.x / qn, q.y / qn, q.z / qn};
+}
+
 }  // namespace ort

@@ -5,8 +5,10 @@
 // entry), `_locate` (toroidal chunk lookup + depth-level descent),
 // `_march_env` (`solid_probe`, `classify_and_escape`, `step_state`),
 // `_run_loop` (the bounded while loop), and `_hit_record`/`reconstruct`
-// (material, hit cell and flat texel at the frozen t), plus the
-// `t_start`/`live_start` resume of `march` (B3, first half).
+// (material, hit cell and flat texel at the frozen t), plus B3: the
+// `t_start`/`live_start` resume of `march` (march_jnp.py:538-547), its
+// `step_budget`/`steps_stride` stages (:596-616) and `_expose_live_t`
+// (:642-652).
 //
 // What bounds it on an H100: not bytes.  At the bench scene the pools
 // (tree 1.4 MiB, twig_occ 0.8 MiB, twig 25.5 MiB) fit in the 50 MB L2, and
@@ -29,36 +31,32 @@
 // chip smoke test prints the resulting SIMT efficiency.  Shared-memory chunk
 // tables, ray reordering inside warps and treelet caching are later work.
 //
-// Arithmetic follows march_plain (ops/march.py) operation for operation, so
-// with -fmad=false the two agree bit for bit: the texel coordinate is
-// (p - bm) * inv_ls, the escape clamp is esc < EPS -> BIGEPS then + EPS, a
-// step counts only while the ray is live and resident, and the chunk index
-// is floor(p / cs) taken modulo the grid with a floor modulo.
+// The entry test and the bounded loop (locate, probe, escape, and the
+// per-ray budget) are in march_step.cuh, shared with the segment sampler K4
+// (segments.cu).  The budget is a template parameter here: the unbudgeted
+// main-path march carries no budget state.  Arithmetic follows march_plain
+// (ops/march.py) operation for operation; with -fmad=false the two agree bit
+// for bit.
 
-#include "common.cuh"
+#include "march_step.cuh"
 
 namespace ort {
 namespace {
 
 struct MarchArgs {
-    const int32_t* tree;
-    const int32_t* twig;
-    const int32_t* twig_occ;
-    const float* chunk_bmin;
-    const int32_t* chunk_tree;
-    const int32_t* chunk_twig;
-    const float* chunkcoordmin;
-    float chunksize;
-    int w, h, d, depth;
-    int64_t twig_len, occ_len;
+    WorldArgs world;
     const float* o;
     const float* dirs;
     const float* t_start;        // nullable: resume parameter per ray
     const int32_t* live_start;   // nullable: 0/1 liveness per ray
+    const int32_t* step_budget;  // nullable: per-ray budget (B3b)
     int64_t n;
-    int cap;                     // loop bound: 4 * ceil(max_steps / 4)
+    int cap;                     // loop bound: 4 * ceil(max_steps / 4), or
+                                 // stages * stride with a budget
+    int stride;                  // budget stage length
     int assume_resident;
     int steps_aov;
+    int expose_live_t;           // rays live at the cap report their t
     uint8_t* out_hit;
     float* out_t;
     int32_t* out_material;
@@ -68,149 +66,38 @@ struct MarchArgs {
     int32_t* out_texel;
 };
 
+template <bool kBudget>
 __global__ void __launch_bounds__(128) march_kernel(const MarchArgs a) {
     const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= a.n) return;
 
-    const float ax = a.o[3 * r], ay = a.o[3 * r + 1], az = a.o[3 * r + 2];
-    const float bx = a.dirs[3 * r], by = a.dirs[3 * r + 1], bz = a.dirs[3 * r + 2];
-    const float gx = safe_inv(bx), gy = safe_inv(by), gz = safe_inv(bz);
-
-    const float cs = a.chunksize;
-    const float lox = __ldg(a.chunkcoordmin + 0) * cs;
-    const float loy = __ldg(a.chunkcoordmin + 1) * cs;
-    const float loz = __ldg(a.chunkcoordmin + 2) * cs;
-    const float hix = lox + (float)a.w * cs;
-    const float hiy = loy + (float)a.h * cs;
-    const float hiz = loz + (float)a.d * cs;
-    const int nchunks = a.w * a.h * a.d;
+    const Ray q = load_ray(a.o, a.dirs, r);
+    const Box box = world_box(a.world);
 
     // ---- entry (march_jnp._entry_t_live) or resume (t_start) -------------
     float t0;
     bool live;
     if (a.t_start == nullptr) {
-        const float t1x = fminf((lox - ax) * gx, (hix - ax) * gx);
-        const float t2x = fmaxf((lox - ax) * gx, (hix - ax) * gx);
-        const float t1y = fminf((loy - ay) * gy, (hiy - ay) * gy);
-        const float t2y = fmaxf((loy - ay) * gy, (hiy - ay) * gy);
-        const float t1z = fminf((loz - az) * gz, (hiz - az) * gz);
-        const float t2z = fmaxf((loz - az) * gz, (hiz - az) * gz);
-        const float tnear = fmaxf(t1x, fmaxf(t1y, t1z));
-        const float tfar = fminf(t2x, fminf(t2y, t2z));
-        const bool inside0 = ax >= lox && ax <= hix && ay >= loy && ay <= hiy &&
-                             az >= loz && az <= hiz;
-        const bool enter_ok = tfar > tnear && tnear > 0.0f;
-        t0 = (1.0f - (inside0 ? 1.0f : 0.0f)) * (tnear + kEps);
-        live = inside0 || enter_ok;
+        entry_t_live(q, box, t0, live);
     } else {
         t0 = fmaxf(a.t_start[r], 0.0f);
         live = true;
     }
     if (a.live_start != nullptr) live = live && a.live_start[r] != 0;
-    // The packed-state start of the reference: clamp, then clear the sign.
-    float t = fabsf(fminf(t0, kTClamp));
 
-    bool hit = false;
-    int steps = 0;
-    int material = 0, texel = -1;
-    float hbx = 0.0f, hby = 0.0f, hbz = 0.0f, hsize = 0.0f;
+    const MarchState s = run_march<kBudget>(a.world, box, q, start_t(t0), live, a.cap,
+                                            kBudget ? a.step_budget[r] : 0, a.stride,
+                                            a.assume_resident != 0);
 
-    for (int it = 0; it < a.cap && live; ++it) {
-        const float tg = fminf(t, kTClamp);
-        const float px = ax + bx * tg, py = ay + by * tg, pz = az + bz * tg;
-        const bool in_world = px >= lox && px <= hix && py >= loy && py <= hiy &&
-                              pz >= loz && pz <= hiz;
-        if (!in_world) { live = false; break; }
-
-        // ---- locate: toroidal chunk lookup ---------------------------------
-        const float qx = floorf(px / cs), qy = floorf(py / cs), qz = floorf(pz / cs);
-        int ci = imod((int)qx, a.w) + imod((int)qz, a.d) * a.w +
-                 imod((int)qy, a.h) * (a.w * a.d);
-        ci = clampi(ci, 0, nchunks - 1);
-        float bmx = qx * cs, bmy = qy * cs, bmz = qz * cs;
-        if (!a.assume_resident) {
-            const bool in_chunk = __ldg(a.chunk_bmin + 3 * ci) == bmx &&
-                                  __ldg(a.chunk_bmin + 3 * ci + 1) == bmy &&
-                                  __ldg(a.chunk_bmin + 3 * ci + 2) == bmz;
-            if (!in_chunk) { live = false; break; }
-        }
-        ++steps;
-
-        // ---- locate: descent ------------------------------------------------
-        const int tree_off = __ldg(a.chunk_tree + ci);
-        const int twig_off = __ldg(a.chunk_twig + ci);
-        float size = cs;
-        int word = __ldg(a.tree + tree_off);
-        for (int lv = 0; lv < a.depth; ++lv) {
-            if (((word >> 30) & 3) != kBranch) break;
-            const int payload = word & kU30;
-            const float half = size * 0.5f;
-            const int gex = px >= bmx + half;
-            const int gey = py >= bmy + half;
-            const int gez = pz >= bmz + half;
-            bmx = bmx + (gex ? half : 0.0f);
-            bmy = bmy + (gey ? half : 0.0f);
-            bmz = bmz + (gez ? half : 0.0f);
-            size = size - half;
-            word = __ldg(a.tree + tree_off + payload + gex + 2 * gey + 4 * gez);
-        }
-
-        // ---- solid probe ----------------------------------------------------
-        const int ty = (word >> 30) & 3;
-        const int payload = word & kU30;
-        const bool m_leaf = ty == kLeaf;
-        const bool m_twig = ty == kTwig;
-        const float leafsize = size * (1.0f / kTwigSize);
-        const float inv_ls = 1.0f / leafsize;
-        const int tox = trunc_clip((px - bmx) * inv_ls, 0.0f, kTwigSize - 1);
-        const int toy = trunc_clip((py - bmy) * inv_ls, 0.0f, kTwigSize - 1);
-        const int toz = trunc_clip((pz - bmz) * inv_ls, 0.0f, kTwigSize - 1);
-        const int tword = toz * (kTwigSize * kTwigSize) + toy * kTwigSize + tox;
-        bool solid = m_leaf;
-        if (m_twig) {
-            const int64_t oi = clampl((int64_t)(twig_off + payload) * 2 + (tword >> 5),
-                                      0, a.occ_len - 1);
-            solid = (__ldg(a.twig_occ + oi) >> (tword & 31)) & 1;
-        }
-
-        if (solid) {
-            // ---- hit record (march_jnp._hit_record) at the frozen t ---------
-            hit = true;
-            live = false;
-            const int64_t ti = clampl((int64_t)(twig_off + payload) * kTwigWords + tword,
-                                      0, a.twig_len - 1);
-            material = m_leaf ? payload : __ldg(a.twig + ti);
-            hbx = bmx + (m_leaf ? 0.0f : (float)tox * leafsize);
-            hby = bmy + (m_leaf ? 0.0f : (float)toy * leafsize);
-            hbz = bmz + (m_leaf ? 0.0f : (float)toz * leafsize);
-            hsize = m_leaf ? size : size + (leafsize - size);
-            texel = m_leaf ? -1 : (int)ti;
-            break;
-        }
-
-        // ---- advance: escape the (cell | texel) box ------------------------
-        const float ex = bmx + (m_twig ? (float)tox * leafsize : 0.0f);
-        const float ey = bmy + (m_twig ? (float)toy * leafsize : 0.0f);
-        const float ez = bmz + (m_twig ? (float)toz * leafsize : 0.0f);
-        const float esize = m_twig ? size + (leafsize - size) : size;
-        const float dx = fmaxf((ex - px) * gx, (ex + esize - px) * gx);
-        const float dy = fmaxf((ey - py) * gy, (ey + esize - py) * gy);
-        const float dz = fmaxf((ez - pz) * gz, (ez + esize - pz) * gz);
-        float esc = fminf(dx, fminf(dy, dz));
-        if (esc < kEps) esc = esc + (kBigEps - esc);
-        esc = esc + kEps;
-        t = tg + esc;
-    }
-
-    a.out_hit[r] = hit ? 1 : 0;
-    a.out_t[r] = hit ? t : INFINITY;
-    a.out_material[r] = material;
-    a.out_cell_bmin[3 * r] = hbx;
-    a.out_cell_bmin[3 * r + 1] = hby;
-    a.out_cell_bmin[3 * r + 2] = hbz;
-    a.out_cell_size[r] = hsize;
-    a.out_steps[r] = a.steps_aov ? steps : 0;
-    a.out_texel[r] = texel;
+    a.out_hit[r] = s.hit ? 1 : 0;
+    a.out_t[r] = (s.hit || (a.expose_live_t && s.live)) ? s.t : INFINITY;
+    a.out_material[r] = s.rec.material;
+    a.out_cell_bmin[3 * r] = s.rec.bx;
+    a.out_cell_bmin[3 * r + 1] = s.rec.by;
+    a.out_cell_bmin[3 * r + 2] = s.rec.bz;
+    a.out_cell_size[r] = s.rec.size;
+    a.out_steps[r] = kBudget ? s.charged : (a.steps_aov ? s.steps : 0);
+    a.out_texel[r] = s.rec.texel;
 }
 
 }  // namespace
@@ -224,26 +111,21 @@ int ort_march(const void* tree, const void* twig, const void* twig_occ,
               const void* chunkcoordmin, float chunksize, int w, int h, int d,
               int depth, int64_t twig_len, int64_t occ_len, const void* o,
               const void* dirs, const void* t_start, const void* live_start,
-              int64_t n, int cap, int assume_resident, int steps_aov,
+              const void* step_budget, int64_t n, int cap, int stride,
+              int assume_resident, int steps_aov, int expose_live_t,
               void* out_hit, void* out_t, void* out_material, void* out_cell_bmin,
               void* out_cell_size, void* out_steps, void* out_texel, void* stream) {
     ort::MarchArgs a;
-    a.tree = static_cast<const int32_t*>(tree);
-    a.twig = static_cast<const int32_t*>(twig);
-    a.twig_occ = static_cast<const int32_t*>(twig_occ);
-    a.chunk_bmin = static_cast<const float*>(chunk_bmin);
-    a.chunk_tree = static_cast<const int32_t*>(chunk_tree);
-    a.chunk_twig = static_cast<const int32_t*>(chunk_twig);
-    a.chunkcoordmin = static_cast<const float*>(chunkcoordmin);
-    a.chunksize = chunksize;
-    a.w = w; a.h = h; a.d = d; a.depth = depth;
-    a.twig_len = twig_len; a.occ_len = occ_len;
+    a.world = ort::world_args(tree, twig, twig_occ, chunk_bmin, chunk_tree, chunk_twig,
+                              chunkcoordmin, chunksize, w, h, d, depth, twig_len, occ_len);
     a.o = static_cast<const float*>(o);
     a.dirs = static_cast<const float*>(dirs);
     a.t_start = static_cast<const float*>(t_start);
     a.live_start = static_cast<const int32_t*>(live_start);
-    a.n = n; a.cap = cap;
+    a.step_budget = static_cast<const int32_t*>(step_budget);
+    a.n = n; a.cap = cap; a.stride = stride;
     a.assume_resident = assume_resident; a.steps_aov = steps_aov;
+    a.expose_live_t = expose_live_t;
     a.out_hit = static_cast<uint8_t*>(out_hit);
     a.out_t = static_cast<float*>(out_t);
     a.out_material = static_cast<int32_t*>(out_material);
@@ -254,7 +136,12 @@ int ort_march(const void* tree, const void* twig, const void* twig_occ,
     if (n > 0) {
         const int threads = 128;
         const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-        ort::march_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+        const cudaStream_t st = static_cast<cudaStream_t>(stream);
+        if (a.step_budget != nullptr) {
+            ort::march_kernel<true><<<blocks, threads, 0, st>>>(a);
+        } else {
+            ort::march_kernel<false><<<blocks, threads, 0, st>>>(a);
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -39,21 +39,6 @@ enum LightSlot {
 // Material table row (shade/materials.py MaterialTable.to_matrix), 10 floats.
 constexpr int kMatStride = 10, kMatDif = 3, kMatSpec = 6, kMatShin = 9;
 
-struct V3 { float x, y, z; };
-
-__device__ __forceinline__ V3 ld3(const float* p) { return {__ldg(p), __ldg(p + 1), __ldg(p + 2)}; }
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 mul(V3 a, V3 b) { return {a.x * b.x, a.y * b.y, a.z * b.z}; }
-__device__ __forceinline__ V3 scale(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ V3 neg(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ float length(V3 a) { return sqrtf(dot(a, a)); }
-__device__ __forceinline__ V3 normalize(V3 a) {
-    const float l = fmaxf(length(a), 1e-12f);
-    return {a.x / l, a.y / l, a.z / l};
-}
-
 // lights._blinn_terms -> (diffuse factor, specular factor)
 __device__ __forceinline__ void blinn(V3 n, V3 l, V3 v, float shin, float& d, float& s) {
     const V3 h = normalize(add(l, v));
@@ -120,18 +105,7 @@ __global__ void __launch_bounds__(128) shade_kernel(const ShadeArgs a) {
     const V3 cmin = {a.cell_bmin[3 * r], a.cell_bmin[3 * r + 1], a.cell_bmin[3 * r + 2]};
     const float csz = a.cell_size[r];
     const V3 cmax = {cmin.x + csz, cmin.y + csz, cmin.z + csz};
-    const V3 center = scale(add(cmin, cmax), 0.5f);
-    const V3 half = scale(sub(cmax, cmin), 0.5f);
-    const V3 nr = {(p.x - center.x) / fmaxf(half.x, 1e-30f),
-                   (p.y - center.y) / fmaxf(half.y, 1e-30f),
-                   (p.z - center.z) / fmaxf(half.z, 1e-30f)};
-    const float k = 1.0f + kEps;
-    // float -> int32 saturates, as XLA's convert does.
-    const V3 q = {truncf(fminf(fmaxf(nr.x * k, -2147483648.0f), 2147483648.0f)),
-                  truncf(fminf(fmaxf(nr.y * k, -2147483648.0f), 2147483648.0f)),
-                  truncf(fminf(fmaxf(nr.z * k, -2147483648.0f), 2147483648.0f))};
-    const float qn = fmaxf(length(q), 1e-12f);
-    const V3 n = {q.x / qn, q.y / qn, q.z / qn};
+    const V3 n = cube_normal(p, cmin, cmax);
 
     // ---- materials.lookup (plain row read) --------------------------------
     const int m = clampi(a.material[r], 0, a.num_materials - 1);

@@ -36,11 +36,17 @@ NVCC_FLAGS = [
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
 # C signature of every entry point: (argtypes), all return int (a cudaError_t).
+_WORLD = [_P] * 7 + [_F, _I, _I, _I, _I, _I64, _I64]   # csrc/march_step.cuh world_args
 SIGNATURES = {
-    "ort_march": [_P] * 7 + [_F, _I, _I, _I, _I, _I64, _I64] + [_P] * 4
-                 + [_I64, _I, _I, _I] + [_P] * 7 + [_P],
+    "ort_march": _WORLD + [_P] * 5 + [_I64, _I, _I, _I, _I, _I] + [_P] * 7 + [_P],
     "ort_shade": [_P] * 10 + [_I, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _I64]
                  + [_P] * 4 + [_P],
+    "ort_ray_prep": [_P] * 8 + [_F, _F, _F, _I64] + [_P] * 3 + [_P],
+    "ort_shadow_resolve": [_P] * 5 + [_I64, _P] + [_P],
+    "ort_map_project": [_P] * 6 + [_I, _I, _P, _F, _I64, _P] + [_P],
+    "ort_segments": _WORLD + [_P, _P, _I64] + [_I] * 7 + [_P] * 4 + [_P],
+    "ort_composite_fwd": [_P] * 6 + [_I, _F, _I64, _I, _I64] + [_P] * 4 + [_P],
+    "ort_composite_bwd": [_P] * 6 + [_I, _F, _I64, _I, _I64] + [_P] * 8 + [_P],
 }
 
 _lock = threading.Lock()

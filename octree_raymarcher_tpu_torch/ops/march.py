@@ -13,7 +13,14 @@ CPU tensor it runs :func:`march_plain`, which repeats the kernel's arithmetic
 op for op on the rays still live.  Semantics kept from the reference:
 
 * the loop bound is ``4 * ceil(max_steps / 4)`` (the reference's while loop
-  runs in unrolls of 4); a ray still live at the bound is a miss;
+  runs in unrolls of 4); a ray still live at the bound is a miss, or, with
+  ``_expose_live_t``, reports its current t (the resume support of
+  march_jnp.py:642-652);
+* ``step_budget`` (march_jnp.py:596-616): iterations fall into stages of
+  ``stride = max(4, (steps_stride // 4) * 4)``, at most
+  ``ceil(max_steps / stride)`` of them; a ray enters a stage only while its
+  charge is below its budget, each stage entered charges a full stride, a
+  ray whose budget runs out is a miss, and ``.steps`` returns the charge;
 * a step counts while the ray is live and resident (the exact ``steps``
   AOV of ``march(steps_aov=True)``); ``steps_aov=False`` returns zeros;
 * t is clamped to T_CLAMP before each step's geometry, and the entry t to
@@ -53,6 +60,18 @@ class MarchResult:
 def loop_bound(max_steps: int) -> int:
     """Iterations the reference runs at most: max_steps rounded up to 4."""
     return 4 * ((int(max_steps) + 3) // 4)
+
+
+def budget_stride(steps_stride: int) -> int:
+    """The budget's stage length: steps_stride rounded down to the loop's
+    unroll of 4, at least 4."""
+    return max(4, (int(steps_stride) // 4) * 4)
+
+
+def budget_cap(max_steps: int, stride: int) -> int:
+    """Iterations a budgeted march runs at most: whole stages covering
+    max_steps."""
+    return ((int(max_steps) + stride - 1) // stride) * stride
 
 
 def _world_box(world: TorchWorld, like):
@@ -127,6 +146,9 @@ def march_plain(
     t_start=None,
     live_start=None,
     assume_resident: bool = False,
+    step_budget=None,
+    steps_stride: int = 16,
+    expose_live_t: bool = False,
 ) -> MarchResult:
     """The march in plain PyTorch ops: K1's arithmetic, step by step, over
     the rays still live (rays are independent, so compacting them changes
@@ -149,9 +171,20 @@ def march_plain(
     ta = t[act]
     occ_len = world.twig_occ.shape[0]
     twig_len = world.twig.shape[0]
-    for _ in range(loop_bound(max_steps)):
+    budgeted = step_budget is not None
+    stride = budget_stride(steps_stride)
+    cap = budget_cap(max_steps, stride) if budgeted else loop_bound(max_steps)
+    charged = torch.zeros(n, dtype=torch.int32, device=dev)
+    for it in range(cap):
         if act.numel() == 0:
             break
+        if budgeted and it % stride == 0:
+            # stage boundary: out of budget -> miss; else charge a stride
+            ok = charged[act] < step_budget[act]
+            act, ta = act[ok], ta[ok]
+            charged[act] += stride
+            if act.numel() == 0:
+                break
         a, b, ga = o[act], d[act], g[act]
         tg = torch.clamp_max(ta, T_CLAMP)
         p = a + b * tg[:, None]
@@ -199,14 +232,19 @@ def march_plain(
         act = act[adv]
         ta = (tg + esc)[adv]
 
-    if not steps_aov:
+    if expose_live_t:
+        t_out[act] = ta           # rays still live at the cap
+    if budgeted:
+        steps = charged
+    elif not steps_aov:
         steps.zero_()
     return MarchResult(hit=hit, t=t_out, material=material, cell_bmin=cell_bmin,
                        cell_size=cell_size, steps=steps, texel=texel)
 
 
 def _march_cuda(world, o, d, max_steps, steps_aov, t_start, live_start,
-                assume_resident) -> MarchResult:
+                assume_resident, step_budget=None, steps_stride=16,
+                expose_live_t=False) -> MarchResult:
     """Launch K1 on PyTorch's current stream; outputs allocated here."""
     n = o.shape[0]
     dev = o.device
@@ -219,21 +257,29 @@ def _march_cuda(world, o, d, max_steps, steps_aov, t_start, live_start,
         steps=torch.empty(n, dtype=torch.int32, device=dev),
         texel=torch.empty(n, dtype=torch.int32, device=dev),
     )
-    w, h, dd = world.dims
+    stride = budget_stride(steps_stride)
+    cap = budget_cap(max_steps, stride) if step_budget is not None else loop_bound(max_steps)
     MARCH_KERNEL(
-        ptr(world.tree), ptr(world.twig), ptr(world.twig_occ),
-        ptr(world.chunk_bmin), ptr(world.chunk_tree), ptr(world.chunk_twig),
-        ptr(world.chunkcoordmin), float(world.chunksize), w, h, dd, world.depth,
-        world.twig.shape[0], world.twig_occ.shape[0],
-        ptr(o), ptr(d), ptr(t_start), ptr(live_start),
-        n, loop_bound(max_steps), int(bool(assume_resident)), int(bool(steps_aov)),
+        *world_args(world), ptr(o), ptr(d), ptr(t_start), ptr(live_start),
+        ptr(step_budget), n, cap, stride, int(bool(assume_resident)),
+        int(bool(steps_aov)), int(bool(expose_live_t)),
         ptr(res.hit), ptr(res.t), ptr(res.material), ptr(res.cell_bmin),
         ptr(res.cell_size), ptr(res.steps), ptr(res.texel),
     )
     return res
 
 
-def _check_world(world: TorchWorld, dev: torch.device):
+def world_args(world: TorchWorld) -> tuple:
+    """The world half of a march-kernel call (csrc/march_step.cuh
+    world_args): pools, chunk table, grid and pool lengths."""
+    w, h, dd = world.dims
+    return (ptr(world.tree), ptr(world.twig), ptr(world.twig_occ),
+            ptr(world.chunk_bmin), ptr(world.chunk_tree), ptr(world.chunk_twig),
+            ptr(world.chunkcoordmin), float(world.chunksize), w, h, dd, world.depth,
+            world.twig.shape[0], world.twig_occ.shape[0])
+
+
+def check_world(world: TorchWorld, dev: torch.device):
     if world.device.type != dev.type:
         raise ValueError(f"world lives on {world.device}, rays asked for {dev}")
     for name in ("tree", "twig", "twig_occ", "chunk_tree", "chunk_twig"):
@@ -259,6 +305,9 @@ def march(
     t_start=None,
     live_start=None,
     assume_resident: bool = False,
+    step_budget=None,
+    steps_stride: int = 16,
+    _expose_live_t: bool = False,
     device="cuda",
 ) -> MarchResult:
     """March N rays through ``world``; returns a :class:`MarchResult`.
@@ -269,9 +318,13 @@ def march(
     resume a march mid-ray: with ``t_start`` the entry test is skipped and
     ray i starts at ``max(t_start[i], 0)``; ``live_start`` (0/1) starts
     rays dead at no cost.  ``assume_resident`` skips the per-step chunk
-    residency test (valid for a static world)."""
+    residency test (valid for a static world).  ``step_budget`` (int32[N])
+    charges each ray ``stride`` iterations per stage entered (see the module
+    docstring) and returns the charge in ``.steps``; it excludes
+    ``steps_aov=True``.  ``_expose_live_t`` makes rays still live at the
+    cap report their current t instead of inf."""
     dev = resolve_device(device)
-    _check_world(world, dev)
+    check_world(world, dev)
     o = to_device(origins, dev)
     d = to_device(dirs, dev)
     if o.ndim != 2 or o.shape[1] != 3 or d.shape != o.shape:
@@ -280,25 +333,29 @@ def march(
         t_start = to_device(t_start, dev)
     if live_start is not None:
         live_start = to_device(live_start, dev, torch.int32)
-    for name, x in (("t_start", t_start), ("live_start", live_start)):
+    if step_budget is not None:
+        if steps_aov is True:
+            raise ValueError("step_budget returns the charge in .steps; it excludes "
+                             "steps_aov=True")
+        step_budget = to_device(step_budget, dev, torch.int32)
+    for name, x in (("t_start", t_start), ("live_start", live_start),
+                    ("step_budget", step_budget)):
         if x is not None and x.shape != (o.shape[0],):
             raise ValueError(f"{name} must have shape ({o.shape[0]},), got {tuple(x.shape)}")
     steps_aov = bool(steps_aov)
-    if o.is_cuda:
-        return _march_cuda(world, o, d, max_steps, steps_aov, t_start,
-                           live_start, assume_resident)
-    return march_plain(world, o, d, max_steps, steps_aov, t_start, live_start,
-                       assume_resident)
+    fn = _march_cuda if o.is_cuda else march_plain
+    return fn(world, o, d, max_steps, steps_aov, t_start, live_start, assume_resident,
+              step_budget, steps_stride, _expose_live_t)
 
 
 def march_tiled(world, origins, dirs, max_steps: int = MAX_STEPS, tile: int = 8192,
-                steps_aov=False, live_start=None, assume_resident: bool = False,
-                device="cuda") -> MarchResult:
-    """:func:`march` over the whole batch in one launch; ``tile`` is
-    accepted for callers of the reference and ignored."""
+                unroll: int = 4, steps_aov=False, live_start=None, steps_stride: int = 16,
+                assume_resident: bool = False, device="cuda") -> MarchResult:
+    """:func:`march` over the whole batch in one launch; ``tile`` and
+    ``unroll`` are accepted for callers of the reference and ignored."""
     return march(world, origins, dirs, max_steps, steps_aov=steps_aov,
                  live_start=live_start, assume_resident=assume_resident,
-                 device=device)
+                 steps_stride=steps_stride, device=device)
 
 
 def march_frame(world, origins, dirs, max_steps: int = MAX_STEPS, tile: int = 65536,
@@ -311,4 +368,5 @@ def march_frame(world, origins, dirs, max_steps: int = MAX_STEPS, tile: int = 65
 
 
 __all__ = ["MarchResult", "march", "march_plain", "march_tiled", "march_frame",
-           "MARCH_KERNEL", "T_CLAMP", "loop_bound"]
+           "MARCH_KERNEL", "T_CLAMP", "loop_bound", "budget_stride", "budget_cap",
+           "world_args", "check_world"]

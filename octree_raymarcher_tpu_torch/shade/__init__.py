@@ -3,5 +3,15 @@ from .camera import OrthoCamera, PerspectiveCamera
 from .envmap import default_envmap, sample_env
 from .lights import DirectionalLight, LightRig, PointLight, Spotlight
 from .materials import MaterialTable
-from .render import RenderConfig, render, render_frame, shade_hits, shade_hits_plain
+from .render import (
+    RenderConfig,
+    map_shadow,
+    ray_shadow,
+    render,
+    render_frame,
+    render_shadowmap,
+    shade_hits,
+    shade_hits_plain,
+    shadow_bundle,
+)
 from .tiling import block_permutation

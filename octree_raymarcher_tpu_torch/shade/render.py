@@ -1,12 +1,17 @@
-"""The forward render pass: march + Blinn-Phong shade + depth AOVs.
+"""The forward render pass: march + shadow + Blinn-Phong shade + depth AOVs.
 
-PyTorch counterpart of octree_raymarcher_tpu/shade/render.py for
-``shadow="none"``: the march (CUDA kernel K1, ops/march.py) and then
-per-ray shading (CUDA kernel K2, csrc/shade.cu) into the AOV dict of the
-reference (rgb, depth, hit, material, steps, point, normal).  On CPU tensors
-both stages run their plain PyTorch versions.
+PyTorch counterpart of octree_raymarcher_tpu/shade/render.py: the march
+(CUDA kernel K1, ops/march.py), the shadow factor (shade/shadow.py: K3 around
+a second K1 launch), and per-ray shading (CUDA kernel K2, csrc/shade.cu)
+into the AOV dict of the reference (rgb, depth, hit, material, steps, point,
+normal).  Per frame the kernels launch in this order:
 
-Shadows ("ray", "map") are not ported yet and raise NotImplementedError.
+* ``shadow="none"``: K1, K2;
+* ``shadow="ray"``: K1, K3 ray_prep, K1 (shadow rays), K2;
+* ``shadow="map"``: K1 (light bundle), K3 shadow_resolve, K1, K3
+  map_project, K2 (the light pass is skipped when ``shadowmap`` is given).
+
+On CPU tensors every stage runs its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -23,13 +28,23 @@ from ..world.device import TorchWorld, resolve_device, to_device
 from .envmap import sample_env
 from .lights import LightRig
 from .materials import MaterialTable
+from .shadow import (
+    host_vp,
+    light_dir,
+    map_project,
+    map_shadow,
+    ray_prep,
+    ray_shadow,
+    render_shadowmap,
+    shadow_bundle,
+)
 
 SHADE_KERNEL = Kernel("ort_shade")
 
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    shadow: str = "none"            # only "none" in this port so far
+    shadow: str = "none"            # "none" | "ray" | "map"
     max_steps: int = 512
     sky: tuple = (0.45, 0.65, 0.95)
     gamma: float = 2.2              # atlas decode gamma
@@ -46,14 +61,8 @@ class RenderConfig:
 
 
 def _check_shadow(cfg: RenderConfig) -> None:
-    if cfg.shadow == "none":
-        return
-    if cfg.shadow in ("ray", "map"):
-        raise NotImplementedError(
-            f"shadow={cfg.shadow!r} is not ported yet (ROADMAP queue A item 4: "
-            "shadows); use shadow='none'"
-        )
-    raise ValueError(f"unknown shadow mode {cfg.shadow!r}")
+    if cfg.shadow not in ("none", "ray", "map"):
+        raise ValueError(f"unknown shadow mode {cfg.shadow!r}")
 
 
 def shade_hits_plain(res: MarchResult, o, d, eye, lights: LightRig,
@@ -160,6 +169,15 @@ def shade_hits(res: MarchResult, origins, dirs, eye, lights: LightRig,
     return fn(res, o, d, eye, lights, materials, cfg, shadow_factor, atlas, envmap)
 
 
+def _ray_shadow_hits(world: TorchWorld, res: MarchResult, o, d, lights: LightRig,
+                     cfg: RenderConfig):
+    """render()'s ray shadow: :func:`ray_shadow` with the start points and
+    normals taken from the hit records inside K3's ray_prep."""
+    start, dirs, live = ray_prep(res, o, d, light_dir(lights))
+    sres = march(world, start, dirs, cfg.max_steps, live_start=live, device=res.hit.device)
+    return (res.hit & sres.hit).to(torch.float32)
+
+
 def render(
     world: TorchWorld,
     origins,
@@ -175,17 +193,29 @@ def render(
 ) -> dict:
     """Full forward pass over a ray batch on ``device`` (where ``world``
     lives).  Returns the AOV dict (rgb, depth, hit, material, steps, point,
-    normal).  ``shadowmap`` is accepted for callers of the reference; only
-    ``cfg.shadow == "none"`` is supported."""
+    normal).  With ``cfg.shadow == "map"``, ``shadowmap`` (depth, light_vp)
+    from :func:`render_shadowmap` is used when given, else the light pass
+    runs here with the screen pass's ``max_steps`` and
+    ``assume_resident``."""
     _check_shadow(cfg)
     lights = LightRig.default() if lights is None else lights
     materials = MaterialTable.default() if materials is None else materials
     dev = resolve_device(device)
     o = to_device(origins, dev)
     d = to_device(dirs, dev)
+    if cfg.shadow == "map" and shadowmap is None:
+        shadowmap = render_shadowmap(world, lights, max_steps=cfg.max_steps,
+                                     assume_resident=cfg.assume_resident)
     res = march(world, o, d, cfg.max_steps, steps_aov=bool(cfg.steps_aov),
                 assume_resident=cfg.assume_resident, device=dev)
-    return shade_hits(res, o, d, eye, lights, materials, cfg,
+    shadow_factor = None
+    if cfg.shadow == "ray":
+        shadow_factor = _ray_shadow_hits(world, res, o, d, lights, cfg)
+    elif cfg.shadow == "map":
+        depth_map, vp = shadowmap
+        shadow_factor = map_project(res, o, d, to_device(depth_map, dev), host_vp(vp),
+                                    cfg.shadow_bias)
+    return shade_hits(res, o, d, eye, lights, materials, cfg, shadow_factor=shadow_factor,
                       atlas=atlas, envmap=envmap)
 
 
@@ -206,13 +236,15 @@ def render_frame(
     compact_schedule=None,
     device="cuda",
 ) -> dict:
-    """Full-frame render: one march launch and one shade launch for the
-    whole batch.  ``tile``, ``fused``, ``compact``, ``compact_stride`` and
-    ``compact_schedule`` are accepted for callers of the reference and
-    ignored (they chose among TPU schedules of the same result)."""
+    """Full-frame render: one launch of each kernel of :func:`render` for
+    the whole batch.  ``tile``, ``fused``, ``compact``, ``compact_stride``
+    and ``compact_schedule`` are accepted for callers of the reference and
+    ignored (they chose among TPU schedules of the same result; the
+    reference's compact path also returned a "lane_iters" count, which has
+    no counterpart here)."""
     return render(world, origins, dirs, eye, lights, materials, cfg, atlas,
                   envmap=envmap, device=device)
 
 
-__all__ = ["RenderConfig", "render", "render_frame", "shade_hits", "shade_hits_plain",
-           "SHADE_KERNEL"]
+__all__ = ["RenderConfig", "render", "render_frame", "render_shadowmap", "shadow_bundle",
+           "map_shadow", "ray_shadow", "shade_hits", "shade_hits_plain", "SHADE_KERNEL"]

@@ -207,5 +207,12 @@ def pack_chunks(
     )
 
 
+def single_chunk_world(chunk) -> PackedWorld:
+    """Wrap one chunk as a 1x1x1 world; its position must sit on the chunk grid."""
+    coord = np.asarray(chunk.position, dtype=np.float64) / chunk.size
+    assert np.allclose(coord, np.round(coord)), "chunk must sit on the chunk grid"
+    return pack_chunks([chunk], (1, 1, 1), chunkcoordmin=np.round(coord).astype(np.int64))
+
+
 __all__ = ["TorchWorld", "PackedWorld", "pack_chunks", "occupancy_masks",
-           "resolve_device"]
+           "resolve_device", "single_chunk_world"]

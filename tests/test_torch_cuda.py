@@ -6,13 +6,31 @@ package, so on the GPU machine it runs without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Both kernels are built with -fmad=false, so the march agrees bit for bit and
-the shading to within libm ulps (tolerance as in chip_smoke.py)."""
+The kernels are built with -fmad=false, so the march (K1, with and without
+a budget), the shadow passes (K3) and the segment sampler (K4) agree bit for
+bit; the shading (K2) and the composite forward (K5) to within libm ulps
+(exp, log1p, powf); the composite backward (K6) to rtol 1e-4 / atol 1e-6
+relative to the largest gradient, because its atomicAdd scatter sums in
+run-to-run order (tolerance as in chip_smoke.py)."""
 
 import numpy as np
 import pytest
 import torch
 
+from octree_raymarcher_tpu_torch.diff.composite import (
+    COMPOSITE_BWD_KERNEL,
+    COMPOSITE_FWD_KERNEL,
+    VoxelParams,
+    composite,
+    composite_backward_plain,
+    composite_plain,
+    init_params_from_world,
+)
+from octree_raymarcher_tpu_torch.diff.segments import (
+    SEGMENTS_KERNEL,
+    sample_segments,
+    sample_segments_plain,
+)
 from octree_raymarcher_tpu_torch.ops.march import MARCH_KERNEL, march, march_plain
 from octree_raymarcher_tpu_torch.shade import (
     LightRig,
@@ -24,6 +42,7 @@ from octree_raymarcher_tpu_torch.shade import (
     shade_hits,
     shade_hits_plain,
 )
+from octree_raymarcher_tpu_torch.shade import shadow as S
 from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL
 from octree_raymarcher_tpu_torch.world.world import World
 
@@ -91,3 +110,87 @@ def test_shade_kernel_matches_plain(gpu_scene, textured):
     assert SHADE_KERNEL.launches == before + 1
     for k in ("rgb", "depth", "point", "normal"):
         torch.testing.assert_close(got[k], ref[k], rtol=1e-4, atol=1e-5, msg=k)
+
+
+def _exact(got, ref, names):
+    for k in names:
+        torch.testing.assert_close(getattr(got, k), getattr(ref, k), rtol=0, atol=0, msg=k)
+
+
+@pytest.mark.parametrize("expose", [False, True])
+def test_march_budget_matches_plain(gpu_scene, expose):
+    world, o, d, _, rng = gpu_scene
+    n = o.shape[0]
+    budget = torch.from_numpy(rng.integers(0, 80, n).astype(np.int32)).cuda()
+    got = march(world, o, d, max_steps=64, step_budget=budget, steps_stride=8,
+                _expose_live_t=expose, device="cuda")
+    ref = march_plain(world, o, d, 64, False, None, None, False, budget, 8, expose)
+    _exact(got, ref, FIELDS)
+    assert int(got.steps.max()) > 0
+
+
+def test_shadow_kernels_match_plain(gpu_scene):
+    world, o, d, _, _ = gpu_scene
+    res = march(world, o, d, max_steps=512, device="cuda")
+    ldir = S.light_dir(LightRig.default())
+    before = S.RAY_PREP_KERNEL.launches
+    for x, y in zip(S.ray_prep(res, o, d, ldir), S.ray_prep_plain(res, o, d, ldir)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    assert S.RAY_PREP_KERNEL.launches == before + 1
+    depth, vp = S.render_shadowmap(world, LightRig.default(), resolution=(64, 64))
+    origins, dirs, vp_np = S._bundle(world, LightRig.default(), 64, 64, 1.1)
+    lres = march(world, origins, dirs, max_steps=512, device="cuda")
+    torch.testing.assert_close(S.shadow_resolve(origins, dirs, lres.hit, lres.t, vp_np),
+                               S.shadow_resolve_plain(origins, dirs, lres.hit, lres.t, vp_np),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(S.map_project(res, o, d, depth, vp_np),
+                               S.map_project_plain(res, o, d, depth, vp_np), rtol=0, atol=0)
+    pts = torch.randn(o.shape[0], 3, device="cuda") * 20 + 32
+    torch.testing.assert_close(S.map_shadow(pts, depth, vp), S.map_shadow_plain(pts, depth, vp_np),
+                               rtol=0, atol=0)
+    # CUDA points with a host depth map still run K3 on the card
+    before = S.MAP_PROJECT_KERNEL.launches
+    host = S.map_shadow(pts.cpu().numpy(), depth.cpu().numpy(), vp)
+    assert S.MAP_PROJECT_KERNEL.launches == before + 1 and host.is_cuda
+    torch.testing.assert_close(host, S.map_shadow_plain(pts, depth, vp_np), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("budget", [None, 40])
+def test_segments_kernel_matches_plain(gpu_scene, budget):
+    world, o, d, _, _ = gpu_scene
+    before = SEGMENTS_KERNEL.launches
+    kw = dict(max_segments=12, max_steps=256, step_budget=budget, steps_stride=8)
+    got = sample_segments(world, o, d, device="cuda", **kw)
+    ref = sample_segments_plain(world, o, d, **kw)
+    assert SEGMENTS_KERNEL.launches == before + 1
+    _exact(got, ref, ("slot", "t0", "t1", "count"))
+    assert int(got.count.max()) >= 2
+
+
+def test_composite_kernels_match_plain(gpu_scene):
+    world, o, d, _, rng = gpu_scene
+    segs = sample_segments(world, o, d, max_segments=16, device="cuda")
+    p0 = init_params_from_world(world, solid_density=3.0)
+    noise = [torch.from_numpy(rng.normal(0, 0.5, tuple(t.shape)).astype(np.float32)).cuda()
+             for t in (p0.density_raw, p0.albedo_raw)]
+    p = VoxelParams(p0.density_raw + noise[0], p0.albedo_raw + noise[1])
+    n, K = segs.slot.shape
+    bg = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).cuda()
+    fb = (COMPOSITE_FWD_KERNEL.launches, COMPOSITE_BWD_KERNEL.launches)
+    leaf = VoxelParams(p.density_raw.clone().requires_grad_(True),
+                       p.albedo_raw.clone().requires_grad_(True))
+    bgl = bg.clone().requires_grad_(True)
+    out = composite(segs, leaf, sky_rgb=bgl)
+    ref = composite_plain(segs.slot, segs.t0, segs.t1, p.density_raw, p.albedo_raw, bg)
+    for k, r in zip(("rgb", "depth", "opacity", "weights"), ref):
+        torch.testing.assert_close(out[k], r, rtol=1e-5, atol=1e-6, msg=k)
+    g = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
+         for s in ((n, 3), (n,), (n,), (n, K))]
+    torch.autograd.backward([out["rgb"], out["depth"], out["opacity"], out["weights"]], g)
+    assert (COMPOSITE_FWD_KERNEL.launches, COMPOSITE_BWD_KERNEL.launches) == (fb[0] + 1,
+                                                                           fb[1] + 1)
+    want = composite_backward_plain(segs.slot, segs.t0, segs.t1, p.density_raw,
+                                    p.albedo_raw, bg, 8192.0, *g)
+    for got, ref in zip((leaf.density_raw.grad, leaf.albedo_raw.grad, bgl.grad), want):
+        scale = float(ref.abs().max())
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6 * max(scale, 1.0))

@@ -120,6 +120,15 @@ def test_render_frame_is_render_and_counts_no_launch(scene):
 
 @pytest.mark.parametrize("shadow", ["ray", "map"])
 def test_shadow_modes_not_ported(scene, shadow):
+    """The shadow modes were the part of render() not ported in the first
+    slice; they run now (parity with JAX is in test_torch_shadow.py): the
+    frame darkens some lit pixels and keeps the hit mask, and an unknown
+    mode still raises."""
     _, tworld, _, o, d, eye = scene
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        render(tworld, o, d, eye, cfg=RenderConfig(shadow=shadow), device="cpu")
+    lit = render(tworld, o, d, eye, cfg=RenderConfig(shadow="none"), device="cpu")
+    out = render(tworld, o, d, eye, cfg=RenderConfig(shadow=shadow), device="cpu")
+    assert torch.equal(out["hit"], lit["hit"])
+    darker = (out["rgb"] < lit["rgb"] - 1e-6).any(dim=1)
+    assert bool(darker.any()) and not bool((out["rgb"] > lit["rgb"] + 1e-6).any())
+    with pytest.raises(ValueError, match="unknown shadow mode"):
+        render(tworld, o, d, eye, cfg=RenderConfig(shadow="soft"), device="cpu")
