@@ -33,6 +33,17 @@ order, and then:
      the shadowless frame (counters zeroed just before, read just after),
      times the geometry pass, one step and the full step, and checks the
      soft golden on the card.
+ 11. the edited-world session: packs the bench world again with room for
+     edits (World.to_device, slack 1.5) and runs the scripted session of
+     octree_raymarcher_tpu_torch/demo.py (run_session) at 1920x1080 for 12
+     frames with ray shadows, the atlas and the sky map: 4 edits at the
+     picked cursor, one LOD swap and one streaming shift, each one batch
+     patched by the pool-patch kernel K7 (counters zeroed just before, read
+     just after).  After every batch a CPU mirror of the pools takes the
+     same batch through patch_plain and must equal the card's pools word
+     for word; the final frame must match one rendered from a fresh pack of
+     the same chunks; then K7, its plain version and the slice copies are
+     timed on each batch, and the saved world is loaded back.
 
 Every phase prints its lines; any failure raises and the script exits
 nonzero without printing a result.  The line before the last is a JSON
@@ -42,6 +53,7 @@ object with one entry per kernel (times, launches, bounds); the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -120,6 +132,19 @@ def cuda_ms_once(fn):
     return start.elapsed_time(stop), out
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device ms per call of fn, replayed from one CUDA graph of
+    ``iters`` calls: the kernels run back to back, clear of the host's
+    launch path (which bounds a loop of microsecond kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(graph.replay, 5) / iters
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.numel() == 0:
         return 0.0
@@ -134,6 +159,146 @@ def simt_efficiency(steps: torch.Tensor) -> float:
     warps = torch.nn.functional.pad(s, (0, pad)).view(-1, 32)
     lanes = float((warps.max(dim=1).values * 32).sum())
     return float(s.sum()) / lanes if lanes else 1.0
+
+
+def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080),
+                  frames: int = 12) -> dict:
+    """Phase 11: the edited-world session on ``w`` (module docstring).
+    Returns K7's numbers for the kernels line."""
+    from octree_raymarcher_tpu_torch.demo import run_session
+    from octree_raymarcher_tpu_torch.shade import PerspectiveCamera, RenderConfig, render_frame
+    from octree_raymarcher_tpu_torch.world.alloc import (
+        WorldAllocator,
+        patch,
+        patch_plain,
+        stage,
+    )
+    from octree_raymarcher_tpu_torch.world.device import TorchWorld
+    from octree_raymarcher_tpu_torch.world.world import World
+
+    t0 = time.time()
+    wa, ew = w.to_device(slack=1.5, device=dev)
+    torch.cuda.synchronize()
+    t_pack = time.time() - t0
+    mirror = TorchWorld.from_numpy(ew.to_numpy(), device="cpu")
+    pool_names = ("tree", "twig", "twig_occ", "chunk_bmin", "chunk_tree", "chunk_twig")
+    batch_log = []
+
+    def mirror_batch(kind, batch, ew_now):
+        """The CPU mirror takes the same batch through patch_plain; every
+        pool word and chunk-table entry must equal the card's."""
+        for k in ("tree", "twig", "twig_occ"):
+            t, ref = getattr(mirror, k), getattr(ew_now, k)
+            if t.numel() < ref.numel():
+                grown = torch.zeros(ref.numel(), dtype=t.dtype)
+                grown[:t.numel()] = t
+                setattr(mirror, k, grown)
+        patch_plain(mirror, torch.from_numpy(batch.desc), torch.from_numpy(batch.words))
+        bad, err = {}, 0
+        for k in pool_names:
+            a = getattr(ew_now, k).cpu().view(torch.int32)
+            b = getattr(mirror, k).view(torch.int32)
+            bad[k] = int((a != b).sum())
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+        coordmin = torch.as_tensor(w.chunkcoordmin, dtype=torch.float32)
+        bad["chunkcoordmin"] = int((ew_now.chunkcoordmin.cpu() != coordmin).sum())
+        batch_log.append((kind, batch, err))
+        if any(bad.values()):
+            fail(f"K7 disagrees with patch_plain after the {kind} batch: {bad}")
+
+    session_dir = os.path.join(HERE, "build", "chip_smoke_session")
+    zero_counts()
+    session = run_session(w, wa, ew, frames=frames, res=res, out=session_dir, device=dev,
+                          on_batch=mirror_batch)
+    torch.cuda.synchronize()
+    session_launches = {k: v for k, v in read_counts().items() if v}
+    ew = session["world"]
+    kinds = [k for k, _, _ in session["batches"]]
+    if read_counts()["patch"] != len(kinds) or len(batch_log) != len(kinds):
+        fail(f"K7 launches {read_counts()['patch']} != batches {len(kinds)}")
+    if kinds.count("lod") != 1 or kinds.count("shift") != 1 or kinds.count("edit") < 1:
+        fail(f"the session's batches are {kinds}: want edits, one lod and one shift")
+    for k in ("march", "ray_prep", "shade"):
+        if read_counts()[k] == 0:
+            fail(f"kernel {k} was not launched by the session's frames")
+    for (kind, batch, apply_s), (_, _, err) in zip(session["batches"], batch_log):
+        print(f"phase 11 batch {kind}: {batch.chunks} chunks, {batch.desc.shape[0]} descriptors, "
+              f"{batch.words_written} words written; apply {apply_s * 1e3:.3f} ms by host "
+              f"clock (bookkeeping {batch.plan_s * 1e3:.3f}, growth {batch.grow_s * 1e3:.3f}, "
+              f"staging + H2D enqueue {batch.stage_s * 1e3:.3f}); K7 vs patch_plain: every "
+              f"word equal (max abs err {err})", flush=True)
+    print(f"phase 11 session: pack {t_pack:.2f} s; {len(kinds)} batches {kinds}; ms per frame "
+          f"(render + synchronize) {[round(x * 1e3, 3) for x in session['frame_s']]}; pick "
+          f"{[round(x * 1e3, 1) for x in session['pick_s']]} ms; lod {session['lod_s']:.3f} s; "
+          f"shift {session['shift_s']:.3f} s + apply_shift "
+          f"{session['batches'][kinds.index('shift')][2]:.3f} s; save {session['save_s']:.3f} s; "
+          f"launches {session_launches}", flush=True)
+
+    # the patched world against a fresh pack of the same host chunks
+    _, fresh = WorldAllocator.pack(w.chunks, w.dims, w.chunkcoordmin, device=dev)
+    fcam = PerspectiveCamera(position=(256.0, 90.0, -80.0), yaw_deg=0.0, pitch_deg=-12.0,
+                             fov_deg=80.0, width=res[0], height=res[1])
+    fo, fd = fcam.rays()
+    feye = np.asarray(fcam.position, dtype=np.float32)
+    cfg_s = RenderConfig(shadow="ray")
+    ra = render_frame(ew, fo, fd, feye, cfg=cfg_s, atlas=atlas, envmap=env, device=dev)
+    rf = render_frame(fresh, fo, fd, feye, cfg=cfg_s, atlas=atlas, envmap=env, device=dev)
+    torch.cuda.synchronize()
+    edited_err = max_abs(ra["rgb"], rf["rgb"])
+    rgb_bad = int(((ra["rgb"] - rf["rgb"]).abs() > 1e-5 + 1e-4 * rf["rgb"].abs()).sum())
+    if not (torch.equal(ra["hit"], rf["hit"]) and torch.equal(ra["material"], rf["material"])
+            and rgb_bad == 0):
+        fail(f"the patched world's frame differs from a fresh pack's: rgb err {edited_err}")
+    print(f"phase 11 patched vs fresh pack (1080p, ray shadows, atlas, sky map): hit and "
+          f"material exact, rgb max abs err {edited_err}, hit fraction "
+          f"{float(ra['hit'].float().mean()):.4f}; pools {ew.pool_bytes} bytes patched, "
+          f"{fresh.pool_bytes} fresh", flush=True)
+    del ra, rf, fresh
+
+    t0 = time.time()
+    loaded = World.load(os.path.join(session_dir, "world.npz"))
+    load_s = time.time() - t0
+    for a, b in zip(loaded.chunks, w.chunks, strict=True):
+        if not (np.array_equal(a.tree[:a.ntrees], b.tree[:b.ntrees])
+                and np.array_equal(a.twig[:a.ntwigs], b.twig[:b.ntwigs])):
+            fail("the saved world does not load back equal")
+    print(f"phase 11 load: {load_s:.3f} s, {len(loaded.chunks)} chunks equal", flush=True)
+
+    # K7, its plain version and the slice copies alone, on each batch of the
+    # session, replayed onto a copy of the final pools
+    scratch = dataclasses.replace(ew, **{k: getattr(ew, k).clone() for k in pool_names})
+
+    def copies(staged, desc):
+        """The plain version's slice copy_s alone (no occupancy)."""
+        tg = (scratch.tree, scratch.twig, scratch.chunk_bmin.view(torch.int32).view(-1),
+              scratch.chunk_tree, scratch.chunk_twig)
+        words = staged[8 * len(desc):]
+        for tgt, dst, src, cnt in desc:
+            tg[tgt][dst:dst + cnt].copy_(words[src:src + cnt])
+
+    patch_rows = []
+    for kind, batch, _ in session["batches"]:
+        r = batch.desc.shape[0]
+        staged = stage(batch, dev)
+        rows = batch.desc.tolist()
+        desc_t = torch.from_numpy(batch.desc)
+        k7 = cuda_ms(lambda: patch(scratch, staged, r), TIMED_ITERS)
+        plain = cuda_ms(lambda: patch_plain(scratch, desc_t, staged[8 * r:]), 3)
+        lib = cuda_ms(lambda: copies(staged, rows), 3)
+        h2d = cuda_ms(lambda: stage(batch, dev), 5)
+        k7_dev = graph_ms(lambda: patch(scratch, staged, r), TIMED_ITERS)
+        n_occ = int(batch.desc[batch.desc[:, 0] == 1, 3].sum()) // 32
+        nbytes = 32 * r + 8 * batch.words.size + 4 * n_occ
+        patch_rows.append((k7, plain, lib, bound_ms(nbytes, 0.0)[0]))
+        print(f"phase 11 K7 on the {kind} batch: {k7:.4f} ms per call by CUDA events over "
+              f"{TIMED_ITERS} calls, {k7_dev:.5f} ms per launch in a CUDA graph of "
+              f"{TIMED_ITERS}; plain {plain:.3f} ms, slice copies {lib:.3f} ms, staging + H2D "
+              f"{h2d:.3f} ms; bound {patch_rows[-1][3]:.5f} ms ({nbytes} bytes)", flush=True)
+    del scratch
+    k7_ms, k7_plain, k7_lib, k7_bound = (float(np.mean(c)) for c in zip(*patch_rows))
+    return {"launches": session_launches["patch"], "err": float(max(e for _, _, e in batch_log)),
+            "ms": k7_ms, "plain_ms": k7_plain, "library_ms": k7_lib, "bound_ms": k7_bound}
+
 
 
 def main() -> int:
@@ -177,13 +342,14 @@ def main() -> int:
     )
     from octree_raymarcher_tpu_torch.shade import shadow as S
     from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL, _ray_shadow_hits
+    from octree_raymarcher_tpu_torch.world.alloc import PATCH_KERNEL
     from octree_raymarcher_tpu_torch.world.world import World
 
     counters = {"march": MARCH_KERNEL, "shade": SHADE_KERNEL,
                 "ray_prep": S.RAY_PREP_KERNEL, "shadow_resolve": S.SHADOW_RESOLVE_KERNEL,
                 "map_project": S.MAP_PROJECT_KERNEL, "segments": SEGMENTS_KERNEL,
                 "composite_fwd": COMPOSITE_FWD_KERNEL,
-                "composite_bwd": COMPOSITE_BWD_KERNEL}
+                "composite_bwd": COMPOSITE_BWD_KERNEL, "patch": PATCH_KERNEL}
 
     def zero_counts():
         for k in counters.values():
@@ -316,13 +482,29 @@ def main() -> int:
     fk = dict(max_steps=512, assume_resident=True, device=dev)
     k1_ms = cuda_ms(lambda: march(world, O, D, **fk), TIMED_ITERS)
     p1_ms = cuda_ms(lambda: march_plain(world, O, D, 512, False, None, None, True), 2)
+    # K1's step_budget option (B3b) on the same rays: every ray charged
+    # 16-step strides against a budget of 512, held exact against the plain
+    # version and timed alone
+    budget = torch.full((n,), 512, dtype=torch.int32, device=dev)
+    k1b_ms = cuda_ms(lambda: march(world, O, D, step_budget=budget, steps_stride=16, **fk),
+                     TIMED_ITERS)
+    rb = march(world, O, D, step_budget=budget, steps_stride=16, **fk)
+    rbp = march_plain(world, O, D, 512, False, None, None, True, budget, 16, False)
+    torch.cuda.synchronize()
+    bmism = {k: int((~(getattr(rb, k) == getattr(rbp, k)).reshape(n, -1).all(dim=1)).sum())
+             for k in ("hit", "t", "material", "texel", "cell_bmin", "cell_size", "steps")}
+    if max(bmism.values()) > 0:
+        fail(f"K1 with step_budget disagrees with march_plain: {bmism}")
+    del rb, rbp
     rf = march(world, O, D, **fk)
     k2_ms = cuda_ms(lambda: shade_hits(rf, O, D, eye, lights, mats, cfg), TIMED_ITERS)
     p2_ms = cuda_ms(lambda: shade_hits_plain(rf, O, D, eye, lights, mats, cfg), 5)
     k2t_ms = cuda_ms(lambda: shade_hits(rf, O, D, eye, lights, mats, cfg,
                                         atlas=atlas, envmap=env), TIMED_ITERS)
-    print(f"phase 6 kernels alone: K1 {k1_ms:.4f} ms (plain {p1_ms:.2f} ms), K2 "
-          f"{k2_ms:.4f} ms (plain {p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms", flush=True)
+    print(f"phase 6 kernels alone: K1 {k1_ms:.4f} ms (plain {p1_ms:.2f} ms), K1 with "
+          f"step_budget=512, steps_stride=16 {k1b_ms:.4f} ms (exact vs plain: mismatching rays "
+          f"{bmism}), K2 {k2_ms:.4f} ms (plain {p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms",
+          flush=True)
 
     # K1 under other ray orders: warps of 32 consecutive rays in each order.
     orders = {"scanline": np.arange(n),
@@ -608,6 +790,9 @@ def main() -> int:
     if err > 3e-2:
         fail("golden soft_2x1x2_d5 mismatch")
 
+    # ---- 11. the edited-world session ----------------------------------------------
+    k7 = phase_session(w, dev, atlas, env, zero_counts, read_counts)
+
     # ---- result ---------------------------------------------------------------
     ray_io = 24 + 33                     # o, d in; hit t material cell size steps texel out
     k1_bytes = (n * ray_io + packed.tree.nbytes + packed.twig_occ.nbytes
@@ -628,12 +813,12 @@ def main() -> int:
     b_bwd = bound_ms(n * K * 12 + 2 * touched * 16 + n * (20 + 4 * K) + n * 12,
                      COMPOSITE_BWD_OPS * n_valid)
 
-    def entry(name, source, replaces, launches_n, err_v, ms, plain, bound):
+    def entry(name, source, replaces, launches_n, err_v, ms, plain, bound, library=None):
         return {"name": name, "route": "cuda",
                 "source": f"octree_raymarcher_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches_n, "max_abs_err": err_v, "ms": ms,
                 "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": None}
+                "library_ms": library}
 
     sl = {k: sum(v.get(k, 0) for v in shadow_launches.values())
           for k in ("ray_prep", "shadow_resolve", "map_project")}
@@ -654,6 +839,12 @@ def main() -> int:
               fit_launches["composite_fwd"], fwd_err, fwd_ms, fwd_plain_ms, b_fwd),
         entry("composite_bwd", "composite.cu", "octree_raymarcher_tpu/diff/composite.py:89",
               fit_launches["composite_bwd"], bwd_err, bwd_ms, bwd_plain_ms, b_bwd),
+        # per batch, the mean over the session's batches; library_ms: the
+        # plain version's slice copy_s alone (no single PyTorch call
+        # computes the batch)
+        entry("patch", "patch.cu", "octree_raymarcher_tpu/world/alloc.py:167",
+              k7["launches"], k7["err"], k7["ms"], k7["plain_ms"], (k7["bound_ms"], "bytes"),
+              k7["library_ms"]),
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,7 +12,8 @@ The implementation is our own: iterative explicit-stack traversal (no
 recursion limits), vectorized numpy texel masks inside twigs, half-open box
 semantics [bmin, bmax).  Edits run host-side on the numpy Chunk — exactly
 like the reference edits CPU-side then patches the GPU — and the device
-patch of the pools is later work (ROADMAP queue A item 6).
+patch of the pools is kernel K7 (csrc/patch.cu), one launch per edit batch
+(world/alloc.py WorldAllocator.modify_batch).
 """
 
 from __future__ import annotations

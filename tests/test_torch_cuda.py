@@ -7,8 +7,8 @@ package, so on the GPU machine it runs without the repository's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 The kernels are built with -fmad=false, so the march (K1, with and without
-a budget), the shadow passes (K3) and the segment sampler (K4) agree bit for
-bit; the shading (K2) and the composite forward (K5) to within libm ulps
+a budget), the shadow passes (K3), the segment sampler (K4) and the pool
+patch (K7) agree bit for bit; the shading (K2) and the composite forward (K5) to within libm ulps
 (exp, log1p, powf); the composite backward (K6) to rtol 1e-4 / atol 1e-6
 relative to the largest gradient, because its atomicAdd scatter sums in
 run-to-run order (tolerance as in chip_smoke.py)."""
@@ -44,6 +44,20 @@ from octree_raymarcher_tpu_torch.shade import (
 )
 from octree_raymarcher_tpu_torch.shade import shadow as S
 from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL
+from octree_raymarcher_tpu_torch.world.alloc import (
+    CHUNK_BMIN,
+    CHUNK_TREE,
+    CHUNK_TWIG,
+    PATCH_KERNEL,
+    TREE,
+    TWIG,
+    PatchBatch,
+    check_batch,
+    patch,
+    patch_plain,
+    stage,
+)
+from octree_raymarcher_tpu_torch.world.device import TorchWorld
 from octree_raymarcher_tpu_torch.world.world import World
 
 pytestmark = pytest.mark.cuda
@@ -194,3 +208,80 @@ def test_composite_kernels_match_plain(gpu_scene):
     for got, ref in zip((leaf.density_raw.grad, leaf.albedo_raw.grad, bgl.grad), want):
         scale = float(ref.abs().max())
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6 * max(scale, 1.0))
+
+
+POOLS = ("tree", "twig", "twig_occ", "chunk_bmin", "chunk_tree", "chunk_twig", "chunkcoordmin")
+
+
+def _assert_worlds_equal(a: TorchWorld, b: TorchWorld):
+    for k in POOLS:
+        x, y = getattr(a, k), getattr(b, k)
+        assert x.shape == y.shape, k
+        assert torch.equal(x.cpu().view(torch.int32), y.cpu().view(torch.int32)), k
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_patch_kernel_matches_plain(gpu_scene, seed):
+    """K7 against patch_plain on random descriptor sets: twig rows at several
+    64-word offsets (one ending at the pool's end), tree rows (one ending at
+    the pool's end), long rows of many blocks' worth, and chunk-table rows."""
+    rng = np.random.default_rng(seed)
+    w = World.generate(dims=(2, 1, 2), chunksize=32.0, depth=5, seed=7, water_level=4.0,
+                       amplitude=16.0)
+    _, gw = w.to_device(device="cuda")
+    _, cw = w.to_device(device="cpu")
+    n_twig, n_tree = gw.twig.numel() // 64, gw.tree.numel()
+    rows, words, src = [], [], 0
+
+    def add(target, dst, seg):
+        nonlocal src
+        rows.append((target, dst, src, seg.size))
+        words.append(seg.astype(np.int32))
+        src += seg.size
+
+    twig_starts = sorted(rng.choice(np.arange(40, n_twig - 80, 40), size=5, replace=False))
+    for t0 in [0] + [int(t) for t in twig_starts]:
+        k = int(rng.integers(1, 40))
+        add(TWIG, 64 * t0, (rng.uniform(size=64 * k) < 0.5) * rng.integers(1, 7, 64 * k))
+    add(TWIG, 64 * (n_twig - 3), rng.integers(0, 7, 64 * 3))     # ends at the pool's end
+    add(TREE, n_tree - 9, rng.integers(0, 1 << 31, 9))
+    add(TREE, 17, rng.integers(0, 1 << 31, min(n_tree - 40, 5000)))
+    add(CHUNK_BMIN, 3, np.float32([96.0, -32.0, 64.0]).view(np.int32))
+    add(CHUNK_TREE, 2, np.int32([12345]))
+    add(CHUNK_TWIG, 3, np.int32([678]))
+    batch = PatchBatch(desc=np.asarray(rows, np.int64), words=np.concatenate(words), chunks=0)
+    check_batch(gw, batch.desc, batch.words.size)
+    before = PATCH_KERNEL.launches
+    patch(gw, stage(batch, gw.device), len(rows))
+    torch.cuda.synchronize()
+    assert PATCH_KERNEL.launches == before + 1
+    patch_plain(cw, torch.from_numpy(batch.desc), torch.from_numpy(batch.words))
+    _assert_worlds_equal(gw, cw)
+
+
+def test_patch_kernel_growth_then_patch():
+    """An edit that outgrows the pools (slack 1.0): the CUDA world grows,
+    then K7 patches it; the pools equal the CPU path's (patch_plain), and
+    a second batch on the grown pools does too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    w = World.generate(dims=(2, 1, 2), chunksize=32.0, depth=5, seed=7, water_level=4.0,
+                       amplitude=16.0)
+    wc = World.generate(dims=(2, 1, 2), chunksize=32.0, depth=5, seed=7, water_level=4.0,
+                        amplitude=16.0)
+    ga, gw = w.to_device(slack=1.0, device="cuda")
+    ca, cw = wc.to_device(slack=1.0, device="cpu")
+    cap = ga.tree.capacity
+    before = PATCH_KERNEL.launches
+    box = ((0.3, 14.3, 0.7), (63.6, 30.2, 62.4))     # all four chunks, in open air
+    gw = w.apply(ga, gw, w.build(*box, 2))
+    cw = wc.apply(ca, cw, wc.build(*box, 2))
+    assert ga.tree.capacity > cap and gw.tree.numel() == ga.tree.capacity
+    assert gw.twig_occ.numel() == 2 * ga.twig.capacity
+    _assert_worlds_equal(gw, cw)
+    box = ((20.5, 2.5, 20.5), (44.5, 12.5, 44.5))
+    gw = w.apply(ga, gw, w.destroy(*box))
+    cw = wc.apply(ca, cw, wc.destroy(*box))
+    torch.cuda.synchronize()
+    assert PATCH_KERNEL.launches == before + 2
+    _assert_worlds_equal(gw, cw)

@@ -21,9 +21,10 @@ import pytest
 import torch
 
 import octree_raymarcher_tpu_torch as port
-from octree_raymarcher_tpu_torch import kernels
+from octree_raymarcher_tpu_torch import demo, kernels
 from octree_raymarcher_tpu_torch.ops.march import MARCH_KERNEL, march, march_frame
 from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL, render, render_frame
+from octree_raymarcher_tpu_torch.world.alloc import PATCH_KERNEL, WorldAllocator
 from octree_raymarcher_tpu_torch.world.device import TorchWorld
 from octree_raymarcher_tpu_torch.world.world import World
 
@@ -98,10 +99,16 @@ def test_entry_points_raise_without_gpu(tiny, monkeypatch):
     w, o, d = tiny
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cpu_world = w.to_torch(device="cpu")
+    wa, cpu_alloc_world = w.to_device(device="cpu")
     eye = o[0]
     for call in (
         lambda: w.to_torch(),
         lambda: TorchWorld.from_numpy(w.pack()),
+        lambda: w.to_device(),
+        lambda: WorldAllocator.pack(w.chunks, w.dims),
+        lambda: demo.run_session(w, wa, cpu_alloc_world, frames=1, res=(8, 4)),
+        lambda: demo.main(["--frames", "1", "--res", "8x4", "--dims", "1x1x1",
+                           "--depth", "3", "--out", "unused"]),
         lambda: march(cpu_world, o, d),
         lambda: march_frame(cpu_world, o, d),
         lambda: render(cpu_world, o, d, eye),
@@ -127,10 +134,14 @@ def test_world_dtypes_checked(tiny):
 def test_cpu_path_launches_no_kernel(tiny):
     w, o, d = tiny
     world = w.to_torch("cpu")
-    before = (MARCH_KERNEL.launches, SHADE_KERNEL.launches)
+    before = (MARCH_KERNEL.launches, SHADE_KERNEL.launches, PATCH_KERNEL.launches)
     render(world, o, d, o[0], device="cpu")
     march(world, o, d, steps_aov=True, device="cpu")
-    assert (MARCH_KERNEL.launches, SHADE_KERNEL.launches) == before == (0, 0)
+    wa, edited = w.to_device(device="cpu")
+    edited = w.apply(wa, edited, w.destroy((2.0, 0.0, 2.0), (9.0, 16.0, 9.0)))
+    assert wa.last_batch is not None and wa.last_batch.chunks == 1
+    assert (MARCH_KERNEL.launches, SHADE_KERNEL.launches,
+            PATCH_KERNEL.launches) == before == (0, 0, 0)
     assert kernels._lib is None
 
 
