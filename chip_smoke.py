@@ -29,10 +29,12 @@ order, and then:
      version on every 16th ray, with and without a step budget, then on all
      2,073,600 rays without one, and times both there;
  10. training: holds K5 (composite forward) and K6 (backward) against their
-     plain versions at 1080p and K=32, runs fit() for 5 Adam steps toward
-     the shadowless frame (counters zeroed just before, read just after),
-     times the geometry pass, one step and the full step, and checks the
-     soft golden on the card.
+     plain versions at 1080p and K=32, on the bench segments and on a
+     contention batch made on the card from a seed (every valid segment on
+     the 8 coarse-LEAF slots, invalid slots interleaved), times both with
+     their achieved GB/s and share of the bound; runs fit() for 5 Adam steps toward the shadowless frame (counters zeroed just before,
+     read just after), times the geometry pass, one step and the full step,
+     and checks the soft golden on the card.
  11. the edited-world session: packs the bench world again with room for
      edits (World.to_device, slack 1.5) and runs the scripted session of
      octree_raymarcher_tpu_torch/demo.py (run_session) at 1920x1080 for 12
@@ -336,6 +338,7 @@ def main() -> int:
     from octree_raymarcher_tpu_torch.diff.optim import photometric_loss, sample_views
     from octree_raymarcher_tpu_torch.diff.segments import (
         SEGMENTS_KERNEL,
+        SegmentBatch,
         _sample_segments_plain,
         sample_segments,
         sample_segments_plain,
@@ -685,17 +688,24 @@ def main() -> int:
     fp = composite_plain(segs.slot, segs.t0, segs.t1, params0.density_raw,
                            params0.albedo_raw, sky)
     torch.cuda.synchronize()
-    fwd_err, fwd_bad = 0.0, 0
-    for name, b in zip(("rgb", "depth", "opacity", "weights"), fp):
-        a = fk[name]
-        fwd_err = max(fwd_err, max_abs(a, b))
-        fwd_bad += int(((a - b).abs() > 1e-6 + 1e-5 * b.abs()).sum())
-        if not bool(torch.isfinite(a).all()):
-            fail(f"K5 {name} not finite")
-    print(f"phase 10 K5 vs composite_plain: max abs err {fwd_err}, values beyond "
-          f"1e-6 + 1e-5|plain| {fwd_bad}", flush=True)
-    if fwd_bad:
-        fail("K5 disagrees with composite_plain")
+
+    def check_k5(fk, fp, batch):
+        """K5 within 1e-6 + 1e-5|plain| of composite_plain; its max abs err."""
+        err, bad = 0.0, 0
+        for name, b in zip(("rgb", "depth", "opacity", "weights"), fp):
+            a = fk[name]
+            err = max(err, max_abs(a, b))
+            bad += int(((a - b).abs() > 1e-6 + 1e-5 * b.abs()).sum())
+            if not bool(torch.isfinite(a).all()):
+                fail(f"K5 {name} not finite ({batch})")
+        print(f"phase 10 K5 vs composite_plain ({batch}): max abs err {err}, values beyond "
+              f"1e-6 + 1e-5|plain| {bad}", flush=True)
+        if bad:
+            fail(f"K5 disagrees with composite_plain ({batch})")
+        return err
+
+    fwd_err = check_k5(fk, fp, "bench segments")
+    del fk, fp
 
     rng = np.random.default_rng(0)
     ups = [torch.from_numpy(rng.normal(size=sh).astype(np.float32)).to(dev)
@@ -704,47 +714,98 @@ def main() -> int:
         return VoxelParams(p.density_raw.detach().clone().requires_grad_(True),
                            p.albedo_raw.detach().clone().requires_grad_(True))
 
-    leaf = trainable(params0)
-    outs = composite(segs, leaf)
-    torch.autograd.backward([outs["rgb"], outs["depth"], outs["opacity"], outs["weights"]],
-                            ups)
-    want = composite_backward_plain(segs.slot, segs.t0, segs.t1, params0.density_raw,
-                                      params0.albedo_raw, sky, 8192.0, *ups)
-    torch.cuda.synchronize()
-    # Tolerance: |K6 - plain| <= 1e-3 |plain| + 1e-5 max|plain| per value.  Both
-    # sum the same per-segment terms, but K6 with atomicAdd in run-to-run order
-    # and the plain version with index_add_ in another; the 8 coarse-LEAF slots
-    # each take millions of terms, so their float32 sums carry order-dependent
-    # rounding near 1e-4 of their magnitude.
-    bwd_err, bwd_bad = 0.0, 0
-    for name, a, b in (("density_raw", leaf.density_raw.grad, want[0]),
-                       ("albedo_raw", leaf.albedo_raw.grad, want[1])):
-        scale_b = float(b.abs().max())
-        bwd_err = max(bwd_err, max_abs(a, b))
-        bwd_bad += int(((a - b).abs() > 1e-3 * b.abs() + 1e-5 * scale_b).sum())
-        print(f"phase 10 K6 vs composite_backward_plain ({name}): max abs err "
-              f"{max_abs(a, b)}, largest |grad| {scale_b}", flush=True)
-    if bwd_bad:
-        fail(f"K6 disagrees with composite_backward_plain on {bwd_bad} values")
+    def check_k6(batch_segs, batch):
+        """K6 through autograd with all four upstream gradients, against
+        composite_backward_plain; its max abs err."""
+        leaf = trainable(params0)
+        outs = composite(batch_segs, leaf)
+        torch.autograd.backward([outs["rgb"], outs["depth"], outs["opacity"],
+                                 outs["weights"]], ups)
+        want = composite_backward_plain(batch_segs.slot, batch_segs.t0, batch_segs.t1,
+                                        params0.density_raw, params0.albedo_raw, sky, 8192.0,
+                                        *ups)
+        torch.cuda.synchronize()
+        # Tolerance: |K6 - plain| <= 1e-3 |plain| + 1e-5 max|plain| per value.
+        # Both sum the same per-segment terms, but K6 in its own order (runs,
+        # warp groups, block tables, atomics in run-to-run order) and the
+        # plain version with index_add_ in another; the 8 coarse-LEAF slots
+        # each take millions of terms, so their float32 sums carry
+        # order-dependent rounding near 1e-4 of their magnitude.
+        err, bad = 0.0, 0
+        for name, a, b in (("density_raw", leaf.density_raw.grad, want[0]),
+                           ("albedo_raw", leaf.albedo_raw.grad, want[1])):
+            scale_b = float(b.abs().max())
+            err = max(err, max_abs(a, b))
+            bad += int(((a - b).abs() > 1e-3 * b.abs() + 1e-5 * scale_b).sum())
+            print(f"phase 10 K6 vs composite_backward_plain ({name}, {batch}): max abs err "
+                  f"{max_abs(a, b)}, largest |grad| {scale_b}", flush=True)
+        if bad:
+            fail(f"K6 disagrees with composite_backward_plain on {bad} values ({batch})")
+        return err
 
-    fwd_ms = cuda_ms(lambda: _composite_fwd_cuda(
-        segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0),
-        TIMED_ITERS)
+    bwd_err = check_k6(segs, "bench segments")
+
+    def kernel_times(b):
+        """(K5, K6 with all four upstream gradients, K6 with rgb's alone) ms."""
+        args = (b.slot, b.t0, b.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0)
+        return (cuda_ms(lambda: _composite_fwd_cuda(*args), TIMED_ITERS),
+                cuda_ms(lambda: _composite_bwd_cuda(*args, *ups), TIMED_ITERS),
+                cuda_ms(lambda: _composite_bwd_cuda(*args, ups[0], None, None, None),
+                        TIMED_ITERS))
+
+    fwd_ms, bwd_ms, fit_bwd_ms = kernel_times(segs)
     fwd_plain_ms = cuda_ms(lambda: composite_plain(
         segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky), 3)
-    bwd_ms = cuda_ms(lambda: _composite_bwd_cuda(
-        segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0,
-        *ups), TIMED_ITERS)
     bwd_plain_ms = cuda_ms(lambda: composite_backward_plain(
         segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0,
         *ups), 2)
-    fit_bwd_ms = cuda_ms(lambda: _composite_bwd_cuda(
-        segs.slot, segs.t0, segs.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0,
-        ups[0], None, None, None), TIMED_ITERS)
+    # the bounds' bytes: each segment once, each touched slot once (K6: read
+    # and written), the per-ray inputs and outputs (and K5's weights)
+    touched = int(torch.unique(segs.slot[valid]).numel())
+    fwd_bytes = n * K * 12 + touched * 16 + n * (20 + 4 * K)
+    bwd_bytes = n * K * 12 + 2 * touched * 16 + n * (20 + 4 * K) + n * 12
+    # K6 with rgb's gradient alone reads no dL/dw, dL/ddepth or dL/dopacity
+    fit_bwd_bytes = bwd_bytes - n * (8 + 4 * K)
+    b_fwd = bound_ms(fwd_bytes, COMPOSITE_FWD_OPS * n_valid)
+    b_bwd = bound_ms(bwd_bytes, COMPOSITE_BWD_OPS * n_valid)
+    b_fit_bwd = bound_ms(fit_bwd_bytes, COMPOSITE_BWD_OPS * n_valid)
+    rates = {name: f"{nb / (t * 1e6):.1f} GB/s, {bnd[0] / t:.4f} of its bound"
+             for name, nb, t, bnd in (("K5", fwd_bytes, fwd_ms, b_fwd),
+                                      ("K6", bwd_bytes, bwd_ms, b_bwd),
+                                      ("K6 rgb only", fit_bwd_bytes, fit_bwd_ms, b_fit_bwd))}
     print(f"phase 10 kernels alone: K5 {fwd_ms:.4f} ms (plain {fwd_plain_ms:.2f}), K6 "
           f"{bwd_ms:.4f} ms with all four upstream gradients, {fit_bwd_ms:.4f} ms with rgb "
-          f"only (plain {bwd_plain_ms:.2f})", flush=True)
-    del ups, leaf, outs, want
+          f"only (plain {bwd_plain_ms:.2f}); bound K5 {b_fwd[0]:.4f} ms ({fwd_bytes} bytes), "
+          f"K6 {b_bwd[0]:.4f} ms ({bwd_bytes} bytes; rgb only {b_fit_bwd[0]:.4f} ms, "
+          f"{fit_bwd_bytes} bytes); achieved {rates}", flush=True)
+
+    # contention: every valid segment on one of the 8 coarse-LEAF slots, runs
+    # of one slot within rays, invalid slots interleaved; made on the card
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    c_slot = (P - 8) + torch.randint(0, 8, (n, K), generator=gen, device=dev,
+                                     dtype=torch.int32)
+    rep = torch.rand((n, K), generator=gen, device=dev) < 0.5
+    for k in range(1, K):
+        c_slot[:, k] = torch.where(rep[:, k], c_slot[:, k - 1], c_slot[:, k])
+    c_slot = torch.where(torch.rand((n, K), generator=gen, device=dev) < 0.3, -1, c_slot)
+    c_t0 = torch.cumsum(torch.rand((n, K), generator=gen, device=dev) * 0.05, dim=1)
+    c_t1 = c_t0 + torch.rand((n, K), generator=gen, device=dev) * 0.05
+    contention = SegmentBatch(c_slot.contiguous(), c_t0.contiguous(), c_t1.contiguous(),
+                              (c_slot >= 0).sum(dim=1, dtype=torch.int32))
+    del rep, c_slot, c_t0, c_t1
+    with torch.no_grad():
+        fk = composite(contention, params0)
+    fp = composite_plain(contention.slot, contention.t0, contention.t1, params0.density_raw,
+                         params0.albedo_raw, sky)
+    fwd_err = max(fwd_err, check_k5(fk, fp, "contention"))
+    del fk, fp
+    bwd_err = max(bwd_err, check_k6(contention, "contention"))
+    c_ms = kernel_times(contention)
+    print(f"phase 10 contention batch ({int((contention.slot >= 0).sum())} valid segments, "
+          f"all on the 8 coarse-LEAF slots): K5 {c_ms[0]:.4f} ms, K6 {c_ms[1]:.4f} ms with all "
+          f"four upstream gradients, {c_ms[2]:.4f} ms with rgb only", flush=True)
+    del ups, contention
 
     target = out["rgb"]                  # the shadowless hard frame (phase 6)
     views = [(O, D, target)]
@@ -808,10 +869,6 @@ def main() -> int:
              + 2 * packed.chunk_tree.nbytes)
     b_seg = bound_ms(n * (24 + 4 + 12 * K) + pools + 4 * (n_valid - n_leaf),
                      MARCH_OPS_PER_STEP * seg_steps + SEGMENT_OPS * n_valid)
-    touched = int(torch.unique(segs.slot[valid]).numel())
-    b_fwd = bound_ms(n * K * 12 + touched * 16 + n * (20 + 4 * K), COMPOSITE_FWD_OPS * n_valid)
-    b_bwd = bound_ms(n * K * 12 + 2 * touched * 16 + n * (20 + 4 * K) + n * 12,
-                     COMPOSITE_BWD_OPS * n_valid)
 
     def entry(name, source, replaces, launches_n, err_v, ms, plain, bound, library=None):
         return {"name": name, "route": "cuda",

@@ -15,7 +15,9 @@ forward is kernel K5 and its backward kernel K6 (csrc/composite.cu); on CPU
 tensors they are :func:`composite_plain` and
 :func:`composite_backward_plain`, the same formulas in the kernels' order.
 The exclusive prefix of the transmittance is ``cumsum(tau) - tau`` and the
-softplus is ``logaddexp(x, 0)``, as in the reference.
+softplus is ``logaddexp(x, 0)``, as in the reference.  Both kernels walk
+tiles of consecutive rays staged in shared memory; :func:`composite_plan`
+sizes the tiles for a given K.
 """
 
 from __future__ import annotations
@@ -32,6 +34,52 @@ from .segments import SegmentBatch
 COMPOSITE_FWD_KERNEL = Kernel("ort_composite_fwd")
 COMPOSITE_BWD_KERNEL = Kernel("ort_composite_bwd")
 SKY = (0.45, 0.65, 0.95)
+
+SMEM_DEFAULT = 48 * 1024  # a block's shared memory without raising the kernel's limit
+HOT_SLOTS = 8           # the coarse-LEAF slots K6 sums on chip: init_params_from_world's
+                        # num_materials, the last slots of the layout
+TILE_RAYS = 64          # rays per tile = threads per block (csrc/composite.cu kRays)
+CHUNK = 16              # columns of a row staged at once (kChunk)
+
+
+@dataclasses.dataclass(frozen=True)
+class CompositePlan:
+    """How K5 or K6 tiles the [N, K] segments (csrc/composite.cu)."""
+    rays: int     # rays per tile = threads per block, whole warps
+    chunk: int    # columns of a row staged at once (the whole row when K <= CHUNK)
+    smem: int     # bytes of dynamic shared memory per block
+    prefix_on_chip: bool = True   # K6: prefix sums in shared memory, else global scratch
+
+
+def _smem_bytes(chunk: int, K: int, arrays: int, backward: bool,
+                prefix_on_chip: bool = True) -> int:
+    """csrc/composite.cu smem_floats, in bytes: ``arrays`` planes of
+    TILE_RAYS x (chunk | 1); K5's weight plane; K6's prefix sums (TILE_RAYS
+    x (K | 1), when on chip), hot table and per-warp exchange buffer."""
+    floats = arrays * TILE_RAYS * (chunk | 1)
+    if not backward:
+        return 4 * (floats + TILE_RAYS * (chunk | 1))
+    if prefix_on_chip:
+        floats += TILE_RAYS * (K | 1)
+    return 4 * (floats + 4 * HOT_SLOTS + 4 * TILE_RAYS)
+
+
+def composite_plan(K: int, backward: bool, g_weights: bool = False) -> CompositePlan:
+    """The launch plan of K5 (``backward=False``) or K6 for rows of K
+    segments; ``g_weights`` says K6 stages an upstream dL/dweights too.
+
+    Tiles of 64 rays with rows staged 16 columns at a time in one buffer:
+    a block needs ~23 KB and about nine blocks share an SM, which on the
+    H100 beat double-buffered whole rows (fewer, larger blocks) at the
+    training path's K = 32 (PERF.md).  K6 keeps its prefix sums in
+    shared memory while the block stays within 48 KB (K up to ~120), else
+    in a global scratch, so that a long row costs no blocks per SM.  Every
+    K >= 0 has a plan."""
+    arrays = 4 if backward and g_weights else 3
+    chunk = min(max(int(K), 1), CHUNK)
+    on_chip = _smem_bytes(chunk, K, arrays, backward) <= SMEM_DEFAULT
+    return CompositePlan(TILE_RAYS, chunk, _smem_bytes(chunk, K, arrays, backward, on_chip),
+                         on_chip)
 
 
 @dataclasses.dataclass
@@ -177,31 +225,40 @@ def composite_backward_plain(slot, t0, t1, density_raw, albedo_raw, bg, far, g_r
 def _composite_fwd_cuda(slot, t0, t1, density_raw, albedo_raw, bg, far):
     n, K = slot.shape
     dev = slot.device
+    plan = composite_plan(K, backward=False)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
     depth = torch.empty(n, dtype=torch.float32, device=dev)
     opacity = torch.empty(n, dtype=torch.float32, device=dev)
     weights = torch.empty((n, K), dtype=torch.float32, device=dev)
     COMPOSITE_FWD_KERNEL(ptr(slot), ptr(t0), ptr(t1), ptr(density_raw), ptr(albedo_raw),
-                         ptr(bg), int(bg.ndim == 2), float(far), n, K,
-                         density_raw.shape[0], ptr(rgb), ptr(depth), ptr(opacity),
-                         ptr(weights))
+                         ptr(bg), int(bg.ndim == 2), float(far), n, K, density_raw.shape[0],
+                         plan.smem, ptr(rgb), ptr(depth), ptr(opacity), ptr(weights))
     return rgb, depth, opacity, weights
 
 
 def _composite_bwd_cuda(slot, t0, t1, density_raw, albedo_raw, bg, far, g_rgb, g_depth,
                         g_opacity, g_weights):
+    """K6.  The last 8 slots (the coarse-LEAF slots of
+    init_params_from_world's layout) are summed per block before their
+    atomics: a hint from the layout, not a condition of correctness."""
     n, K = slot.shape
     dev = slot.device
-    scratch = torch.empty((n, K), dtype=torch.float32, device=dev)
+    P = density_raw.shape[0]
+    hot_lo = max(P - HOT_SLOTS, 0)
+    plan = composite_plan(K, backward=True, g_weights=g_weights is not None)
+    scratch = None
+    if not plan.prefix_on_chip:          # prefix sums per tile in global: [tile][k][ray]
+        tiles = -(-n // plan.rays)
+        scratch = torch.empty(tiles * plan.rays * K, dtype=torch.float32, device=dev)
     d_density = torch.zeros_like(density_raw)
     d_albedo = torch.zeros_like(albedo_raw)
     d_bg = torch.empty((n, 3), dtype=torch.float32, device=dev)
     grads = [None if g is None else g.contiguous() for g in (g_rgb, g_depth, g_opacity,
                                                              g_weights)]
     COMPOSITE_BWD_KERNEL(ptr(slot), ptr(t0), ptr(t1), ptr(density_raw), ptr(albedo_raw),
-                         ptr(bg), int(bg.ndim == 2), float(far), n, K,
-                         density_raw.shape[0], *(ptr(g) for g in grads), ptr(scratch),
-                         ptr(d_density), ptr(d_albedo), ptr(d_bg))
+                         ptr(bg), int(bg.ndim == 2), float(far), n, K, P, plan.smem, hot_lo,
+                         *(ptr(g) for g in grads), ptr(scratch), ptr(d_density),
+                         ptr(d_albedo), ptr(d_bg))
     return d_density, d_albedo, d_bg
 
 
@@ -290,5 +347,5 @@ def render_soft(world: TorchWorld, params: VoxelParams, origins, dirs, max_segme
 
 
 __all__ = ["VoxelParams", "init_params_from_world", "composite", "composite_plain",
-           "composite_backward_plain", "render_soft", "COMPOSITE_FWD_KERNEL",
-           "COMPOSITE_BWD_KERNEL"]
+           "composite_backward_plain", "composite_plan", "CompositePlan", "render_soft",
+           "COMPOSITE_FWD_KERNEL", "COMPOSITE_BWD_KERNEL"]

@@ -10,8 +10,9 @@ The kernels are built with -fmad=false, so the march (K1, with and without
 a budget), the shadow passes (K3), the segment sampler (K4) and the pool
 patch (K7) agree bit for bit; the shading (K2) and the composite forward (K5) to within libm ulps
 (exp, log1p, powf); the composite backward (K6) to rtol 1e-4 / atol 1e-6
-relative to the largest gradient, because its atomicAdd scatter sums in
-run-to-run order (tolerance as in chip_smoke.py)."""
+relative to the largest gradient, because its scatter sums in its own order
+(runs, warp groups, block tables, then atomics in run-to-run order)
+(tolerance as in chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -24,10 +25,12 @@ from octree_raymarcher_tpu_torch.diff.composite import (
     composite,
     composite_backward_plain,
     composite_plain,
+    composite_plan,
     init_params_from_world,
 )
 from octree_raymarcher_tpu_torch.diff.segments import (
     SEGMENTS_KERNEL,
+    SegmentBatch,
     sample_segments,
     sample_segments_plain,
 )
@@ -181,15 +184,81 @@ def test_segments_kernel_matches_plain(gpu_scene, budget):
     assert int(got.count.max()) >= 2
 
 
-def test_composite_kernels_match_plain(gpu_scene):
+# Synthetic segment batches for K5/K6 (also held against JAX on the CPU in
+# tests/test_torch_composite.py): name -> (N, K, P, share of segments on the
+# 8 hot slots).  Every batch has N not a multiple of 32, invalid slots in
+# the middle of rows and as trailing padding, and runs of one slot within a
+# ray (across invalid segments too); "k1_p5" has P < 8, "k7_all_hot" every
+# valid segment on the hot slots.
+COMPOSITE_CASES = {
+    "k1_p5": (45, 1, 5, 0.0),
+    "k7_all_hot": (70, 7, 300, 1.0),
+    "k33_mixed": (100, 33, 500, 0.4),
+}
+
+
+def composite_case(n, K, P, hot, seed=0):
+    """(slot, t0, t1, density_raw, albedo_raw, bg, [g_rgb, g_depth,
+    g_opacity, g_weights]) as numpy arrays made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    slot = np.where(rng.uniform(size=(n, K)) < hot,
+                    rng.integers(max(P - 8, 0), P, (n, K)), rng.integers(0, P, (n, K)))
+    for k in range(1, K):                       # runs: repeat the previous slot
+        rep = rng.uniform(size=n) < 0.5
+        slot[rep, k] = slot[rep, k - 1]
+    slot[rng.uniform(size=(n, K)) < 0.25] = -1  # invalid anywhere in a row
+    count = rng.integers(0, K + 1, n)
+    slot[np.arange(K)[None, :] >= count[:, None]] = -1
+    t0 = np.cumsum(rng.uniform(0.0, 0.3, (n, K)), axis=1) + rng.uniform(0.0, 5.0, (n, 1))
+    t1 = t0 + rng.uniform(-0.05, 0.3, (n, K))   # a few empty (t1 < t0) segments
+    f32 = np.float32
+    grads = [rng.normal(size=s).astype(f32) for s in ((n, 3), (n,), (n,), (n, K))]
+    return (slot.astype(np.int32), t0.astype(f32), t1.astype(f32),
+            rng.normal(0.0, 2.0, P).astype(f32), rng.normal(0.0, 1.0, (P, 3)).astype(f32),
+            rng.uniform(0.0, 1.0, (n, 3)).astype(f32), grads)
+
+
+def _scene_batch(gpu_scene):
+    """K4's segments on the small scene, with noisy world params."""
     world, o, d, _, rng = gpu_scene
     segs = sample_segments(world, o, d, max_segments=16, device="cuda")
     p0 = init_params_from_world(world, solid_density=3.0)
     noise = [torch.from_numpy(rng.normal(0, 0.5, tuple(t.shape)).astype(np.float32)).cuda()
              for t in (p0.density_raw, p0.albedo_raw)]
-    p = VoxelParams(p0.density_raw + noise[0], p0.albedo_raw + noise[1])
     n, K = segs.slot.shape
     bg = torch.from_numpy(rng.uniform(0, 1, (n, 3)).astype(np.float32)).cuda()
+    g = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
+         for s in ((n, 3), (n,), (n,), (n, K))]
+    return segs, VoxelParams(p0.density_raw + noise[0], p0.albedo_raw + noise[1]), bg, g
+
+
+def _synthetic_batch(n, K, P, hot):
+    arrays = composite_case(n, K, P, hot)
+    slot, t0, t1, dr, ar, bg = (torch.from_numpy(x).cuda() for x in arrays[:6])
+    g = [torch.from_numpy(x).cuda() for x in arrays[6]]
+    segs = SegmentBatch(slot, t0, t1, (slot >= 0).sum(dim=1, dtype=torch.int32))
+    return segs, VoxelParams(dr, ar), bg, g
+
+
+def _k6_close(got, want):
+    for a, b in zip(got, want):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("case", ["scene", *COMPOSITE_CASES, "k300_scratch"])
+def test_composite_kernels_match_plain(gpu_scene, case):
+    """K5 and K6 against their plain versions: on K4's segments of the
+    scene, on the synthetic batches, and at a K past the on-chip plan (K6's
+    prefix sums in global scratch); K6 with all four upstream gradients and
+    with rgb's alone (fit's path)."""
+    if case == "scene":
+        segs, p, bg, g = _scene_batch(gpu_scene)
+    else:
+        shape = (50, 300, 400, 0.3) if case == "k300_scratch" else COMPOSITE_CASES[case]
+        segs, p, bg, g = _synthetic_batch(*shape)
+    n, K = segs.slot.shape
+    assert composite_plan(K, True).prefix_on_chip == (case != "k300_scratch")
     fb = (COMPOSITE_FWD_KERNEL.launches, COMPOSITE_BWD_KERNEL.launches)
     leaf = VoxelParams(p.density_raw.clone().requires_grad_(True),
                        p.albedo_raw.clone().requires_grad_(True))
@@ -198,16 +267,20 @@ def test_composite_kernels_match_plain(gpu_scene):
     ref = composite_plain(segs.slot, segs.t0, segs.t1, p.density_raw, p.albedo_raw, bg)
     for k, r in zip(("rgb", "depth", "opacity", "weights"), ref):
         torch.testing.assert_close(out[k], r, rtol=1e-5, atol=1e-6, msg=k)
-    g = [torch.from_numpy(rng.normal(size=s).astype(np.float32)).cuda()
-         for s in ((n, 3), (n,), (n,), (n, K))]
     torch.autograd.backward([out["rgb"], out["depth"], out["opacity"], out["weights"]], g)
     assert (COMPOSITE_FWD_KERNEL.launches, COMPOSITE_BWD_KERNEL.launches) == (fb[0] + 1,
                                                                            fb[1] + 1)
     want = composite_backward_plain(segs.slot, segs.t0, segs.t1, p.density_raw,
                                     p.albedo_raw, bg, 8192.0, *g)
-    for got, ref in zip((leaf.density_raw.grad, leaf.albedo_raw.grad, bgl.grad), want):
-        scale = float(ref.abs().max())
-        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-6 * max(scale, 1.0))
+    _k6_close((leaf.density_raw.grad, leaf.albedo_raw.grad, bgl.grad), want)
+    # the fit path: rgb's gradient alone (K6 stages three arrays, not four)
+    leaf = VoxelParams(p.density_raw.clone().requires_grad_(True),
+                       p.albedo_raw.clone().requires_grad_(True))
+    composite(segs, leaf, sky_rgb=bg)["rgb"].backward(g[0])
+    assert COMPOSITE_BWD_KERNEL.launches == fb[1] + 2
+    want = composite_backward_plain(segs.slot, segs.t0, segs.t1, p.density_raw,
+                                    p.albedo_raw, bg, 8192.0, g[0], None, None, None)
+    _k6_close((leaf.density_raw.grad, leaf.albedo_raw.grad), want[:2])
 
 
 POOLS = ("tree", "twig", "twig_occ", "chunk_bmin", "chunk_tree", "chunk_twig", "chunkcoordmin")
