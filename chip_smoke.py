@@ -1,4 +1,4 @@
-"""Chip smoke test of the PyTorch port: drive the hard 1080p frame on one GPU.
+"""Chip smoke test of the PyTorch port: drive its main paths on one GPU.
 
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit:
@@ -10,24 +10,30 @@ scene of bench.py (4x4x4 chunks x 128^3, depth 8, seed 0) on the host,
 uploads its pools, builds the 1920x1080 camera rays in 128x128 screen-block
 order, and then:
 
-  4. holds the march kernel K1 against march_plain on all 2,073,600 rays;
+  4. holds the march kernel K1 against march_plain on all 2,073,600 rays, bit
+     for bit (t included), and counts the dependent pool loads a step makes
+     with and without the path cache of csrc/march_step.cuh (path_loads);
   5. holds the shading kernel K2 against shade_hits_plain, plain and with the
      default atlas and sky map;
   6. renders the frame with render_frame(shadow="none") through both kernels,
      plain and textured, and times it with CUDA events; the launch counters
      are zeroed just before this phase and read just after; then times each
-     kernel and plain version alone, and K1 under two other ray orders;
+     kernel and plain version alone (K2 also replayed from a CUDA graph, its
+     device time), and K1 under two other ray orders;
   7. renders the golden scene of tests/test_golden.py on the card and checks
      it against the committed golden thumbnails;
   8. shadows: holds K3's three entries (ray_prep, shadow_resolve,
-     map_project) and the shadow-ray K1 launch against their plain versions
-     on all rays, then renders and times the frames shadow="ray",
-     shadow="map" and the full reference frame (map + atlas + sky map),
+     map_project) and K1 on the shadow rays and on the 512x512 light bundle
+     against their plain versions on all rays (K1 bit for bit, with its
+     steps, load counts and bound for both), then renders and times the
+     frames shadow="ray", shadow="map" and the full reference frame (map +
+     atlas + sky map),
      each with the launch counters zeroed just before and read just after,
      and checks the ray- and map-shadow goldens on the card;
   9. geometry: holds the segment sampler K4 at K=32 against its plain
      version on every 16th ray, with and without a step budget, then on all
-     2,073,600 rays without one, and times both there;
+     2,073,600 rays without one, and times both there; K4's SIMT efficiency
+     comes from the plain version's per-ray steps;
  10. training: holds K5 (composite forward) and K6 (backward) against their
      plain versions at 1080p and K=32, on the bench segments and on a
      contention batch made on the card from a seed (every valid segment on
@@ -47,10 +53,12 @@ order, and then:
      the same chunks; then K7, its plain version and the slice copies are
      timed on each batch, and the saved world is loaded back.
 
-Every phase prints its lines; any failure raises and the script exits
-nonzero without printing a result.  The line before the last is a JSON
-object with one entry per kernel (times, launches, bounds); the last line is
-{"ok": true, "device": {...}}.  With no CUDA device it exits 1 at once.
+Phase 1 prints the card's name and power limit (nvidia-smi) and ptxas's
+registers, shared memory and spills for K1 and K4.  Every phase prints its
+lines; any failure raises and the script exits nonzero without printing a
+result.  The line before the last is a JSON object with one entry per
+kernel (times, launches, bounds); the last line is {"ok": true, "device":
+{...}}.  With no CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -58,6 +66,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +102,7 @@ SEGMENT_OPS = 28
 COMPOSITE_FWD_OPS = 35
 COMPOSITE_BWD_OPS = 69
 
+PATH_LEVELS = 8                 # csrc/march_step.cuh kPathLevels
 REF_STEPS = 50_006_052          # roofline_march.json true_ray_steps_per_frame
 REF_HIT_FRAC = 0.642            # docs/PERF_NOTES.md, plain frame
 TIMED_ITERS = 20
@@ -161,6 +171,146 @@ def simt_efficiency(steps: torch.Tensor) -> float:
     warps = torch.nn.functional.pad(s, (0, pad)).view(-1, 32)
     lanes = float((warps.max(dim=1).values * 32).sum())
     return float(s.sum()) / lanes if lanes else 1.0
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel (template arguments spelled out): "registers, shared memory,
+    stack and spills"} from nvcc -Xptxas -v output."""
+    out, name, frame = {}, None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            for tag in ("march_kernel", "segments_kernel"):
+                if tag in name:
+                    args = re.findall(r"L[bi](\d+)E", name.split(tag, 1)[1])
+                    name = f"{tag}<{','.join(args)}>"
+            frame = ""
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            out[name] = ln.split(":", 1)[1].strip() + "; " + frame
+    return out
+
+
+def march_mismatches(a, b) -> dict:
+    """Rays on which two MarchResults differ, per field; t and cell_bmin
+    compared bit for bit."""
+    out = {}
+    for k in ("hit", "t", "material", "texel", "cell_bmin", "cell_size", "steps"):
+        x, y = getattr(a, k), getattr(b, k)
+        if x.dtype == torch.float32:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        out[k] = int((~(x == y).reshape(x.shape[0], -1).all(dim=1)).sum())
+    return out
+
+
+def path_loads(world, o, d, max_steps: int, assume_resident: bool, live_start=None) -> dict:
+    """A count, not a time: per step of the march on these rays, the pool
+    loads on a ray's dependent chain without the path cache (chunk table,
+    root word, one word per level descended, the twig's occupancy word) and
+    with it (chunk table and root only when the chunk changes, only the
+    levels below the first new child choice or past the PATH_LEVELS the
+    path keeps, occupancy only for a new twig), as csrc/march_step.cuh
+    run_march does.  A warp waits for its
+    longest chain, so each iteration also counts the longest chain among
+    the 32 rays of a warp (launch order) still marching.  Same formulas as
+    march_plain; the hit step counts, the loop stops at hits and exits."""
+    from octree_raymarcher_tpu_torch.core.constants import BIGEPS, EPS, TWIG_SIZE
+    from octree_raymarcher_tpu_torch.core.geometry import const, inv_dir
+    from octree_raymarcher_tpu_torch.ops.march import T_CLAMP, _entry, _world_box, loop_bound
+
+    n, dev = o.shape[0], o.device
+    g = inv_dir(d)
+    lo, hi = _world_box(world, o)
+    t, live0 = _entry(world, o, d, g, None, live_start)
+    act = torch.nonzero(live0).flatten()
+    ta = t[act]
+    wdim, hdim, ddim = world.dims
+    cs = world.chunksize
+    depth = world.depth
+    prev_q = torch.full((n, 3), float("inf"), device=dev)
+    prev_choice = torch.full((n, max(depth, 1)), -1, dtype=torch.int8, device=dev)
+    occ_len = world.twig_occ.shape[0]
+    tot = {"steps": 0, "before": 0, "after": 0, "warp_before": 0, "warp_after": 0,
+           "zero_load_steps": 0}
+    nwarps = (n + 31) // 32
+    for _ in range(loop_bound(max_steps)):
+        if act.numel() == 0:
+            break
+        a, b, ga = o[act], d[act], g[act]
+        tg = torch.clamp_max(ta, T_CLAMP)
+        p = a + b * tg[:, None]
+        in_world = ((p >= lo) & (p <= hi)).all(dim=1)
+        q = torch.floor(p / const(p, cs))
+        qi = q.to(torch.int32)
+        ci = (torch.remainder(qi[:, 0], wdim) + torch.remainder(qi[:, 2], ddim) * wdim
+              + torch.remainder(qi[:, 1], hdim) * (wdim * ddim)).clamp(0, world.num_chunks - 1)
+        bm = q * cs
+        ci = ci.long()
+        resident = in_world if assume_resident else in_world & (world.chunk_bmin[ci] == bm).all(1)
+        same = (q == prev_q[act]).all(dim=1)
+        tree_off = world.chunk_tree[ci].long()
+        word = world.tree[tree_off]
+        size = torch.full((act.numel(),), cs, dtype=torch.float32, device=dev)
+        levels = torch.zeros(act.numel(), dtype=torch.int32, device=dev)
+        loaded = torch.zeros(act.numel(), dtype=torch.int32, device=dev)
+        choices = prev_choice[act]
+        for lv in range(depth):
+            mb = ((word >> 30) & 3) == 2
+            half = size * 0.5
+            ge = p >= bm + half[:, None]
+            child = ge[:, 0].int() + 2 * ge[:, 1].int() + 4 * ge[:, 2].int()
+            bm = torch.where(mb[:, None], bm + torch.where(ge, half[:, None], 0.0), bm)
+            size = torch.where(mb, size - half, size)
+            kept = lv < PATH_LEVELS
+            same = same & (~mb | (kept & (child == choices[:, lv].int())))
+            levels += mb.int()
+            loaded += (mb & ~same).int()
+            choices[:, lv] = torch.where(mb, child.to(torch.int8), choices[:, lv])
+            nxt = world.tree[(tree_off + (word & ((1 << 30) - 1)).long() + child.long())
+                             .clamp(0, world.tree.shape[0] - 1)]
+            word = torch.where(mb, nxt, word)
+        ty = (word >> 30) & 3
+        m_twig = ty == 3
+        new_chunk = ~((q == prev_q[act]).all(dim=1))
+        before = 2 + levels + m_twig.int()
+        after = 2 * new_chunk.int() + loaded + (m_twig & ~same).int()
+        before = torch.where(resident, before, 0)
+        after = torch.where(resident, after, 0)
+        tot["steps"] += int(resident.sum())
+        tot["before"] += int(before.sum())
+        tot["after"] += int(after.sum())
+        tot["zero_load_steps"] += int((resident & (after == 0)).sum())
+        warp = act // 32
+        for key, v in (("warp_before", before), ("warp_after", after)):
+            m = torch.zeros(nwarps, dtype=torch.int32, device=dev)
+            m.scatter_reduce_(0, warp, v.int(), reduce="amax")
+            tot[key] += int(m.sum())
+        prev_q[act] = torch.where(resident[:, None], q, prev_q[act])
+        prev_choice[act] = torch.where(resident[:, None], choices, prev_choice[act])
+
+        # probe and escape, as march_plain
+        payload = word & ((1 << 30) - 1)
+        twig_off = world.chunk_twig[ci]
+        leafsize = size * (1.0 / TWIG_SIZE)
+        to = torch.clamp((p - bm) * (1.0 / leafsize)[:, None], 0.0, TWIG_SIZE - 1).to(torch.int32)
+        tword = to[:, 2] * 16 + to[:, 1] * 4 + to[:, 0]
+        oi = ((twig_off + payload).long() * 2 + (tword >> 5).long()).clamp(0, occ_len - 1)
+        tex_solid = ((world.twig_occ[oi] >> (tword & 31)) & 1) == 1
+        solid = resident & ((ty == 1) | (m_twig & tex_solid))
+        offs = to.to(torch.float32) * leafsize[:, None]
+        e = bm + torch.where(m_twig[:, None], offs, 0.0)
+        esize = torch.where(m_twig, size + (leafsize - size), size)
+        dd = torch.maximum((e - p) * ga, (e + esize[:, None] - p) * ga)
+        esc = torch.minimum(dd[:, 0], torch.minimum(dd[:, 1], dd[:, 2]))
+        esc = torch.where(esc < EPS, esc + (BIGEPS - esc), esc) + EPS
+        adv = resident & ~solid
+        act = act[adv]
+        ta = (tg + esc)[adv]
+    s = max(tot["steps"], 1)
+    return {"steps": tot["steps"], "chain_before": tot["before"] / s,
+            "chain_after": tot["after"] / s, "zero_load_share": tot["zero_load_steps"] / s,
+            "warp_chain_ratio": tot["warp_after"] / max(tot["warp_before"], 1)}
 
 
 def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080),
@@ -344,7 +494,11 @@ def main() -> int:
         sample_segments_plain,
     )
     from octree_raymarcher_tpu_torch.shade import shadow as S
-    from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL, _ray_shadow_hits
+    from octree_raymarcher_tpu_torch.shade.render import (
+        SHADE_KERNEL,
+        _ray_shadow_hits,
+        _shade_launch,
+    )
     from octree_raymarcher_tpu_torch.world.alloc import PATCH_KERNEL
     from octree_raymarcher_tpu_torch.world.world import World
 
@@ -375,6 +529,9 @@ def main() -> int:
     regs = [ln.strip() for ln in kernels.build_log().splitlines() if "registers" in ln]
     print(f"phase 1 build: {time.time() - t0:.2f} s, {kind}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}; ptxas: {regs}", flush=True)
+    for name, info in ptxas_report(kernels.build_log()).items():
+        if "march_kernel" in name or "segments_kernel" in name:
+            print(f"phase 1 ptxas {name}: {info}", flush=True)
 
     # ---- 2. bench world: generate, pack, upload -----------------------------
     t0 = time.time()
@@ -405,18 +562,11 @@ def main() -> int:
     rk = march(world, O, D, **mk)
     rp = march_plain(world, O, D, 512, True, None, None, True)
     torch.cuda.synchronize()
-    mism = {}
-    for k in ("hit", "material", "texel", "cell_bmin", "cell_size", "steps"):
-        eq = getattr(rk, k) == getattr(rp, k)
-        mism[k] = int((~eq.reshape(n, -1).all(dim=1)).sum())
-    fin = torch.isfinite(rk.t) & torch.isfinite(rp.t)
-    ulps = (rk.t[fin].view(torch.int32).long() - rp.t[fin].view(torch.int32).long()).abs()
-    t_bad = int((ulps > 1).sum()) + int((torch.isfinite(rk.t) != torch.isfinite(rp.t)).sum())
-    worst = max(mism.values())
-    print(f"phase 4 march K1 vs plain: mismatching rays {mism}, t beyond 1 ulp {t_bad}",
+    mism = march_mismatches(rk, rp)
+    print(f"phase 4 march K1 vs plain: mismatching rays {mism} (t compared bit for bit)",
           flush=True)
-    if worst > n * 1e-4 or t_bad > 0:
-        fail(f"K1 disagrees with march_plain: {mism}, t {t_bad}")
+    if max(mism.values()) > 0:
+        fail(f"K1 disagrees with march_plain: {mism}")
     both = rk.hit & rp.hit
     march_err = float((rk.t[both] - rp.t[both]).abs().max()) if bool(both.any()) else 0.0
     steps_sum = int(rk.steps.to(torch.int64).sum())
@@ -426,6 +576,11 @@ def main() -> int:
     print(f"phase 4 march stats: sum steps {steps_sum} (reference count {REF_STEPS}), "
           f"hit fraction {hit_frac:.4f} (reference {REF_HIT_FRAC}), SIMT efficiency "
           f"{simt:.4f}, max steps {int(rk.steps.max())}, twig hits {twig_hits}", flush=True)
+    loads = {"camera": path_loads(world, O, D, 512, True)}
+    if loads["camera"]["steps"] != steps_sum:
+        fail(f"path_loads counted {loads['camera']['steps']} steps, K1 {steps_sum}")
+    print(f"phase 4 dependent pool loads per step (camera rays): {loads['camera']}",
+          flush=True)
 
     # ---- 5. K2 vs shade_hits_plain ---------------------------------------------
     # Tolerance: |kernel - plain| <= 1e-5 + 1e-4 |plain| per value.  Both run
@@ -504,10 +659,17 @@ def main() -> int:
     p2_ms = cuda_ms(lambda: shade_hits_plain(rf, O, D, eye, lights, mats, cfg), 5)
     k2t_ms = cuda_ms(lambda: shade_hits(rf, O, D, eye, lights, mats, cfg,
                                         atlas=atlas, envmap=env), TIMED_ITERS)
+    mats_dev = mats.to_matrix().to(dev)
+    light_dev = torch.as_tensor(lights.to_vector(), dtype=torch.float32).to(dev)
+    k2g_ms = graph_ms(lambda: _shade_launch(rf, O, D, eye, mats_dev, light_dev, cfg),
+                      TIMED_ITERS)
+    k2tg_ms = graph_ms(lambda: _shade_launch(rf, O, D, eye, mats_dev, light_dev, cfg,
+                                             atlas=atlas, envmap=env), TIMED_ITERS)
     print(f"phase 6 kernels alone: K1 {k1_ms:.4f} ms (plain {p1_ms:.2f} ms), K1 with "
           f"step_budget=512, steps_stride=16 {k1b_ms:.4f} ms (exact vs plain: mismatching rays "
-          f"{bmism}), K2 {k2_ms:.4f} ms (plain {p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms",
-          flush=True)
+          f"{bmism}), K2 {k2_ms:.4f} ms (plain {p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms; "
+          f"K2 device time per launch in a CUDA graph of {TIMED_ITERS}: {k2g_ms:.4f} ms, "
+          f"textured {k2tg_ms:.4f} ms", flush=True)
 
     # K1 under other ray orders: warps of 32 consecutive rays in each order.
     orders = {"scanline": np.arange(n),
@@ -553,12 +715,28 @@ def main() -> int:
     sk = march(world, start, sdirs, 512, steps_aov=True, live_start=live, device=dev)
     sp = march_plain(world, start, sdirs, 512, True, None, live, False)
     torch.cuda.synchronize()
-    smism = {k: int((~(getattr(sk, k) == getattr(sp, k)).reshape(n, -1).all(dim=1)).sum())
-             for k in ("hit", "t", "material", "texel", "cell_bmin", "cell_size", "steps")}
+    smism = march_mismatches(sk, sp)
     if max(smism.values()) > 0:
         fail(f"shadow-ray K1 disagrees with march_plain(live_start): {smism}")
     lorig, ldirs, vp = S._bundle(world, lights, 512, 512, 1.1)
     lres = march(world, lorig, ldirs, 512, assume_resident=True, device=dev)
+    lk = march(world, lorig, ldirs, 512, steps_aov=True, assume_resident=True, device=dev)
+    lp = march_plain(world, lorig, ldirs, 512, True, None, None, True)
+    torch.cuda.synchronize()
+    lmism = march_mismatches(lk, lp)
+    if max(lmism.values()) > 0:
+        fail(f"light-bundle K1 disagrees with march_plain: {lmism}")
+    if not all(torch.equal(getattr(lres, k), getattr(lk, k)) for k in ("hit", "t", "texel")):
+        fail("light-bundle K1 differs with and without the steps AOV")
+    sray_steps = int(sk.steps.to(torch.int64).sum())
+    light_steps = int(lk.steps.to(torch.int64).sum())
+    loads["shadow"] = path_loads(world, start, sdirs, 512, False, live)
+    loads["light"] = path_loads(world, lorig, ldirs, 512, True)
+    if (loads["shadow"]["steps"], loads["light"]["steps"]) != (sray_steps, light_steps):
+        fail(f"path_loads step counts {loads['shadow']['steps']}, {loads['light']['steps']} "
+             f"differ from K1's {sray_steps}, {light_steps}")
+    print(f"phase 8 dependent pool loads per step: shadow rays {loads['shadow']}, light "
+          f"bundle {loads['light']}", flush=True)
     depth_k = S.shadow_resolve(lorig, ldirs, lres.hit, lres.t, vp)
     depth_p = S.shadow_resolve_plain(lorig, ldirs, lres.hit, lres.t, vp)
     depth_map = depth_k.reshape(512, 512)
@@ -570,9 +748,9 @@ def main() -> int:
         fail(f"K3 resolve/project disagree with plain: {resolve_err}, {project_err}")
     print(f"phase 8 K3 vs plain (exact): ray_prep max abs err {prep_err}, shadow_resolve "
           f"{resolve_err} ({lorig.shape[0]} light rays, hit fraction "
-          f"{float(lres.hit.float().mean()):.4f}), map_project {project_err}; shadow-ray K1 "
-          f"vs march_plain mismatching rays {smism}, shadow-ray steps "
-          f"{int(sk.steps.to(torch.int64).sum())}", flush=True)
+          f"{float(lres.hit.float().mean()):.4f}), map_project {project_err}; K1 vs "
+          f"march_plain mismatching rays (t bit for bit): shadow rays {smism}, light bundle "
+          f"{lmism}; steps: shadow rays {sray_steps}, light bundle {light_steps}", flush=True)
 
     cfg_ray = RenderConfig(shadow="ray", max_steps=512, assume_resident=True)
     cfg_map = RenderConfig(shadow="map", max_steps=512, assume_resident=True)
@@ -624,10 +802,23 @@ def main() -> int:
                       TIMED_ITERS)
     light_ms = cuda_ms(lambda: march(world, lorig, ldirs, 512, assume_resident=True,
                                      device=dev), TIMED_ITERS)
+    pools_k1 = (packed.tree.nbytes + packed.twig_occ.nbytes + packed.chunk_bmin.nbytes
+                + 2 * packed.chunk_tree.nbytes)
+    n_light = lorig.shape[0]
+    # shadow rays read o, d and live_start; light rays o, d; both write the
+    # 33 bytes of a MarchResult per ray and read one twig word per texel hit
+    b_sray = bound_ms(n * (24 + 4 + 33) + pools_k1 + 4 * int((sk.texel >= 0).sum()),
+                      MARCH_OPS_PER_STEP * sray_steps)
+    b_light = bound_ms(n_light * (24 + 33) + pools_k1 + 4 * int((lk.texel >= 0).sum()),
+                       MARCH_OPS_PER_STEP * light_steps)
     print(f"phase 8 kernels alone: ray_prep {rp_ms:.4f} ms (plain {rp_plain_ms:.3f}), "
           f"shadow_resolve {rs_ms:.4f} ms (plain {rs_plain_ms:.3f}), map_project "
-          f"{mp_ms:.4f} ms (plain {mp_plain_ms:.3f}); K1 on the shadow rays {sray_ms:.4f} ms, "
-          f"K1 on the 512x512 light bundle {light_ms:.4f} ms", flush=True)
+          f"{mp_ms:.4f} ms (plain {mp_plain_ms:.3f}); K1 on the shadow rays {sray_ms:.4f} ms "
+          f"(bound {b_sray[0]:.4f} ms by {b_sray[1]}, {sray_steps} steps, SIMT efficiency "
+          f"{simt_efficiency(sk.steps):.4f}), K1 on the 512x512 light bundle {light_ms:.4f} ms "
+          f"(bound {b_light[0]:.4f} ms by {b_light[1]}, {light_steps} steps, SIMT efficiency "
+          f"{simt_efficiency(lk.steps):.4f})", flush=True)
+    del sp, lp
 
     for golden, shadow in (("rayshadow_2x1x2_d5", "ray"), ("mapshadow_2x1x2_d5", "map")):
         rgb = render_frame(gw, go, gd, geye, cfg=RenderConfig(shadow=shadow),
@@ -664,6 +855,7 @@ def main() -> int:
     seg_plain_ms, (gp, plain_steps) = cuda_ms_once(
         lambda: _sample_segments_plain(world, O, D, K, 512))
     seg_steps = int(plain_steps.sum())
+    seg_simt = simt_efficiency(plain_steps)
     bad = {k: int((getattr(segs, k) != getattr(gp, k)).sum())
            for k in ("slot", "t0", "t1", "count")}
     if any(bad.values()):
@@ -677,7 +869,8 @@ def main() -> int:
     print(f"phase 9 K4 over the frame: {seg_ms:.4f} ms (plain {seg_plain_ms:.1f} ms), "
           f"{n_valid} segments (mean {n_valid / n:.3f} per ray; {n_leaf} on the 8 coarse-LEAF "
           f"slots), fraction of rays at count = K {full_frac:.4f}, executed march steps "
-          f"{seg_steps}; K4 vs plain on all {n} rays: exact", flush=True)
+          f"{seg_steps}, SIMT efficiency {seg_simt:.4f} (from the plain version's per-ray "
+          f"steps); K4 vs plain on all {n} rays: exact", flush=True)
 
     # ---- 10. training step: K5/K6 vs plain, fit ---------------------------------------
     params0 = init_params_from_world(world)
@@ -861,7 +1054,6 @@ def main() -> int:
     k2_bytes = n * (49 + 40) + mats.to_matrix().nbytes + 50 * 4
     b1, by1 = bound_ms(k1_bytes, MARCH_OPS_PER_STEP * steps_sum)
     b2, by2 = bound_ms(k2_bytes, SHADE_OPS_PER_RAY * n)
-    n_light = lorig.shape[0]
     b_rp = bound_ms(n * (45 + 28), RAY_PREP_OPS * n)
     b_rs = bound_ms(n_light * (29 + 4), RESOLVE_OPS * n_light)
     b_mp = bound_ms(n * (29 + 4) + depth_map.numel() * 4, PROJECT_OPS * n)

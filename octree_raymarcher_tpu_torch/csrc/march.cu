@@ -12,24 +12,26 @@
 //
 // What bounds it on an H100: not bytes.  At the bench scene the pools
 // (tree 1.4 MiB, twig_occ 0.8 MiB, twig 25.5 MiB) fit in the 50 MB L2, and
-// a ray reads only ~24 steps x (1 chunk-table word + up to `depth` tree
-// words + 1 occupancy word).  Each of those reads depends on the one before
-// it (the next node's address is in the word just read), so a step is a
-// chain of ~depth+2 L2 round trips, and a warp runs until its longest ray
-// ends.  The bound is load latency times chain length, divided by the warps
-// in flight, and inflated by divergence in step count and descent depth.
+// a ray takes ~17 steps.  Each step locates its point through a chain of
+// dependent loads (chunk table, root, one tree word per level, occupancy),
+// and a warp runs until its longest ray ends.
 //
 // What this design does about it: every ray keeps t, liveness and its step
 // counter in registers and leaves the loop the moment it hits or escapes,
 // so there is no lockstep carry and no re-pack between stages (the TPU's
 // single-int32-carry rule and march_compact.py have no counterpart here).
-// Pool reads go through the read-only cache (__ldg).  Small 128-thread
-// blocks and a small register footprint keep many warps resident per SM, so
-// the scheduler always has another warp whose load has returned.  The caller
-// orders rays in 128x128 screen blocks (shade/tiling.py), so the 32 rays of
-// a warp are screen neighbours with similar paths and step counts; the
-// chip smoke test prints the resulting SIMT efficiency.  Shared-memory chunk
-// tables, ray reordering inside warps and treelet caching are later work.
+// Each ray also keeps the octree path of its last step (the path cache of
+// march_step.cuh): a step loads only below the first level whose child
+// differs, about a third of the dependent loads on the bench scene
+// (chip_smoke.py counts them).  Pool reads go through the read-only cache
+// (__ldg).  Blocks of 128 threads, at least 8 of them a SM, keep many warps
+// resident, so the scheduler always has another warp whose load has
+// returned.  The caller orders rays in 128x128 screen blocks
+// (shade/tiling.py), so the 32 rays of a warp are screen neighbours with
+// similar paths and step counts; the chip smoke test prints the resulting
+// SIMT efficiency.  On the H100 the shorter chains did not shorten the
+// march (PERF.md): what bounds K1 now is open, and a warp-tile ray
+// order and cheaper per-step arithmetic are the next things to try.
 //
 // The entry test and the bounded loop (locate, probe, escape, and the
 // per-ray budget) are in march_step.cuh, shared with the segment sampler K4
@@ -67,7 +69,7 @@ struct MarchArgs {
 };
 
 template <bool kBudget>
-__global__ void __launch_bounds__(128) march_kernel(const MarchArgs a) {
+__global__ void __launch_bounds__(kPathThreads, kMinBlocks) march_kernel(const MarchArgs a) {
     const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= a.n) return;
 
@@ -85,9 +87,10 @@ __global__ void __launch_bounds__(128) march_kernel(const MarchArgs a) {
     }
     if (a.live_start != nullptr) live = live && a.live_start[r] != 0;
 
+    PathCache path;
     const MarchState s = run_march<kBudget>(a.world, box, q, start_t(t0), live, a.cap,
                                             kBudget ? a.step_budget[r] : 0, a.stride,
-                                            a.assume_resident != 0);
+                                            a.assume_resident != 0, path);
 
     a.out_hit[r] = s.hit ? 1 : 0;
     a.out_t[r] = (s.hit || (a.expose_live_t && s.live)) ? s.t : INFINITY;
@@ -134,7 +137,7 @@ int ort_march(const void* tree, const void* twig, const void* twig_occ,
     a.out_steps = static_cast<int32_t*>(out_steps);
     a.out_texel = static_cast<int32_t*>(out_texel);
     if (n > 0) {
-        const int threads = 128;
+        const int threads = ort::kPathThreads;
         const unsigned blocks = (unsigned)((n + threads - 1) / threads);
         const cudaStream_t st = static_cast<cudaStream_t>(stream);
         if (a.step_budget != nullptr) {

@@ -13,6 +13,23 @@
 // coordinate is (p - bm) * inv_ls, the escape clamp is esc < EPS -> BIGEPS
 // then + EPS, a step counts only while the ray is live and resident, and the
 // chunk index is floor(p / cs) taken modulo the grid with a floor modulo.
+//
+// The path cache.  Locating a point is a chain of dependent loads: the chunk
+// table, the chunk's root word, one tree word per level (each address is in
+// the word before it), then the twig's occupancy word.  Most steps land in
+// the cell next to the last one, or in the same twig, so the chain repeats
+// loads already made.  Each ray keeps the path it located last (PathCache):
+// the chunk, the child chosen at every level with the tree word read there,
+// and its twig's two occupancy words.  A step still runs every compare of
+// the descent from the root in the reference's order (so bm and size round
+// as before), takes the cached word while the chunk and every choice so far
+// match, and loads only below the first choice that differs; a texel step
+// inside the same twig loads nothing.  The pools are read-only during a
+// launch, so a skipped load is one whose address equals a load already
+// made: the result is the full descent's.  The words of the first
+// kPathLevels levels live in registers (that part of the descent is
+// unrolled, so each index is a constant); kernels that march hold at least
+// kMinBlocks blocks a SM, which caps them at 64 registers.
 #pragma once
 
 #include "common.cuh"
@@ -115,6 +132,46 @@ struct MarchState {
     HitRecord rec;
 };
 
+constexpr int kPathLevels = 8;    // levels a path keeps: all of them up to depth 10
+constexpr int kPathThreads = 128; // threads per block of K1 and K4
+constexpr int kMinBlocks = 8;     // resident blocks a SM, held by __launch_bounds__
+
+// The octree path a ray located at its last step: the chunk (keyed by
+// floor(p / chunksize), which fixes both the chunk index and its bmin on the
+// toroidal grid) with its pool offsets, the tree word read at each of the
+// first kPathLevels levels (word[0] is the chunk's root) and the child chosen
+// there (3 bits a level), and the two occupancy words of the twig the path
+// ends at.  Twigs sit at level depth - 2, so worlds up to depth 10 keep
+// their whole path; a deeper one loads its levels past kPathLevels at every
+// step.
+struct PathCache {
+    float qx = INFINITY, qy = 0.0f, qz = 0.0f;  // no chunk equals it: no path yet
+    int tree_off = 0, twig_off = 0;
+    uint32_t choices = 0;
+    int occ0 = 0, occ1 = 0;
+    int word[kPathLevels + 1];
+
+    __device__ __forceinline__ uint32_t choice(int l) const { return (choices >> (3 * l)) & 7u; }
+    __device__ __forceinline__ void set_choice(int l, uint32_t c) {
+        choices = (choices & ~(7u << (3 * l))) | (c << (3 * l));
+    }
+};
+
+// One level of the descent: the child of the cell (bm, size) that holds p,
+// in the reference's order; moves bm and size to it and returns its index.
+__device__ __forceinline__ uint32_t descend(float px, float py, float pz, float& bmx,
+                                            float& bmy, float& bmz, float& size) {
+    const float half = size * 0.5f;
+    const int gex = px >= bmx + half;
+    const int gey = py >= bmy + half;
+    const int gez = pz >= bmz + half;
+    bmx = bmx + (gex ? half : 0.0f);
+    bmy = bmy + (gey ? half : 0.0f);
+    bmz = bmz + (gez ? half : 0.0f);
+    size = size - half;
+    return (uint32_t)(gex + 2 * gey + 4 * gez);
+}
+
 // The bounded loop (march_jnp._run_loop) from parameter t; each iteration is
 // one step: locate the point's chunk and cell, stop on a solid LEAF cell or
 // twig texel (the hit record is taken there), else escape the cell or texel
@@ -126,10 +183,14 @@ struct MarchState {
 // template parameter so the unbudgeted march carries no budget state, and
 // the step is written inline so every exit is a plain break (a step function
 // returning an outcome code cost K1 a reconvergence point per iteration).
+//
+// Locating a point reuses the path of the last step (`path`, carried by the
+// caller across calls; see the path cache above).
 template <bool kBudget>
 __device__ __forceinline__ MarchState run_march(const WorldArgs& w, const Box& b, const Ray& q,
                                                 float t, bool live, int cap, int budget,
-                                                int stride, bool assume_resident) {
+                                                int stride, bool assume_resident,
+                                                PathCache& path) {
     MarchState s;
     const float cs = w.chunksize;
     const int nchunks = w.w * w.h * w.d;
@@ -146,39 +207,53 @@ __device__ __forceinline__ MarchState run_march(const WorldArgs& w, const Box& b
                               pz >= b.loz && pz <= b.hiz;
         if (!in_world) { live = false; break; }
 
-        // ---- locate: toroidal chunk lookup -----------------------------------------
+        // ---- locate: toroidal chunk lookup (only when the chunk changed) -----
         const float qx = floorf(px / cs), qy = floorf(py / cs), qz = floorf(pz / cs);
-        int ci = imod((int)qx, w.w) + imod((int)qz, w.d) * w.w + imod((int)qy, w.h) * (w.w * w.d);
-        ci = clampi(ci, 0, nchunks - 1);
         float bmx = qx * cs, bmy = qy * cs, bmz = qz * cs;
-        if (!assume_resident) {
-            const bool in_chunk = __ldg(w.chunk_bmin + 3 * ci) == bmx &&
-                                  __ldg(w.chunk_bmin + 3 * ci + 1) == bmy &&
-                                  __ldg(w.chunk_bmin + 3 * ci + 2) == bmz;
-            if (!in_chunk) { live = false; break; }
+        bool same = qx == path.qx && qy == path.qy && qz == path.qz;
+        if (!same) {
+            int ci = imod((int)qx, w.w) + imod((int)qz, w.d) * w.w +
+                     imod((int)qy, w.h) * (w.w * w.d);
+            ci = clampi(ci, 0, nchunks - 1);
+            if (!assume_resident) {
+                const bool in_chunk = __ldg(w.chunk_bmin + 3 * ci) == bmx &&
+                                      __ldg(w.chunk_bmin + 3 * ci + 1) == bmy &&
+                                      __ldg(w.chunk_bmin + 3 * ci + 2) == bmz;
+                if (!in_chunk) { live = false; break; }
+            }
+            path.qx = qx; path.qy = qy; path.qz = qz;
+            path.tree_off = __ldg(w.chunk_tree + ci);
+            path.twig_off = __ldg(w.chunk_twig + ci);
+            path.word[0] = __ldg(w.tree + path.tree_off);
         }
         ++s.steps;
 
-        // ---- locate: descent -------------------------------------------------------
-        const int tree_off = __ldg(w.chunk_tree + ci);
-        const int twig_off = __ldg(w.chunk_twig + ci);
+        // ---- locate: descent, loads only below the first new choice ------------
         float size = cs;
-        int word = __ldg(w.tree + tree_off);
-        for (int lv = 0; lv < w.depth; ++lv) {
+        int word = path.word[0];
+#pragma unroll
+        for (int lv = 0; lv < kPathLevels; ++lv) {
+            if (lv >= w.depth || ((word >> 30) & 3) != kBranch) break;
+            const int payload = word & kU30;
+            const uint32_t child = descend(px, py, pz, bmx, bmy, bmz, size);
+            same = same && child == path.choice(lv);
+            if (same) {
+                word = path.word[lv + 1];
+            } else {
+                word = __ldg(w.tree + path.tree_off + payload + (int)child);
+                path.word[lv + 1] = word;
+                path.set_choice(lv, child);
+            }
+        }
+        for (int lv = kPathLevels; lv < w.depth; ++lv) {   // levels the path does not keep
             if (((word >> 30) & 3) != kBranch) break;
             const int payload = word & kU30;
-            const float half = size * 0.5f;
-            const int gex = px >= bmx + half;
-            const int gey = py >= bmy + half;
-            const int gez = pz >= bmz + half;
-            bmx = bmx + (gex ? half : 0.0f);
-            bmy = bmy + (gey ? half : 0.0f);
-            bmz = bmz + (gez ? half : 0.0f);
-            size = size - half;
-            word = __ldg(w.tree + tree_off + payload + gex + 2 * gey + 4 * gez);
+            const uint32_t child = descend(px, py, pz, bmx, bmy, bmz, size);
+            word = __ldg(w.tree + path.tree_off + payload + (int)child);
+            same = false;
         }
 
-        // ---- solid probe -----------------------------------------------------------
+        // ---- solid probe (a new twig's two occupancy words load together) -------
         const int ty = (word >> 30) & 3;
         const int payload = word & kU30;
         const bool m_leaf = ty == kLeaf;
@@ -191,14 +266,17 @@ __device__ __forceinline__ MarchState run_march(const WorldArgs& w, const Box& b
         const int tword = toz * (kTwigSize * kTwigSize) + toy * kTwigSize + tox;
         bool solid = m_leaf;
         if (m_twig) {
-            const int64_t oi = clampl((int64_t)(twig_off + payload) * 2 + (tword >> 5),
-                                      0, w.occ_len - 1);
-            solid = (__ldg(w.twig_occ + oi) >> (tword & 31)) & 1;
+            if (!same) {
+                const int64_t ob = (int64_t)(path.twig_off + payload) * 2;
+                path.occ0 = __ldg(w.twig_occ + clampl(ob, 0, w.occ_len - 1));
+                path.occ1 = __ldg(w.twig_occ + clampl(ob + 1, 0, w.occ_len - 1));
+            }
+            solid = (((tword >> 5) ? path.occ1 : path.occ0) >> (tword & 31)) & 1;
         }
 
         if (solid) {
             // ---- hit record (march_jnp._hit_record) at the frozen t --------------------
-            const int64_t ti = clampl((int64_t)(twig_off + payload) * kTwigWords + tword,
+            const int64_t ti = clampl((int64_t)(path.twig_off + payload) * kTwigWords + tword,
                                       0, w.twig_len - 1);
             s.rec.material = m_leaf ? payload : __ldg(w.twig + ti);
             s.rec.bx = bmx + (m_leaf ? 0.0f : (float)tox * leafsize);

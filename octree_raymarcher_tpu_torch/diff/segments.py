@@ -41,6 +41,25 @@ from ..world.device import TorchWorld, resolve_device, to_device
 SEGMENTS_KERNEL = Kernel("ort_segments")
 _LEAF, _TWIG = 1, 3
 
+THREADS = 128      # rays per block, one per thread (csrc/march_step.cuh kPathThreads)
+WINDOW = 8         # columns staged per window: 32 bytes of a row, one sector
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentsPlan:
+    """How K4 writes its [N, K] rows (csrc/segments.cu)."""
+    cols: int      # columns of its rows a warp stages before it writes them
+    smem: int      # bytes of dynamic shared memory per block
+
+
+def segments_plan(K: int) -> SegmentsPlan:
+    """K4's launch plan for rows of K segments: each warp stages a window
+    of up to WINDOW columns of its 32 rows (slot, t0, t1) in shared memory
+    at an odd row pitch, then writes the window as whole row spans.  Every
+    K >= 1 has a plan; the shared memory does not grow with K."""
+    cols = min(max(int(K), 1), WINDOW)
+    return SegmentsPlan(cols, (THREADS // 32) * 3 * 32 * (cols | 1) * 4)
+
 
 @dataclasses.dataclass
 class SegmentBatch:
@@ -129,10 +148,12 @@ def _segments_cuda(world, a, b, max_segments, max_steps, num_materials, step_bud
     cap = budget_cap(phase_steps, stride) if budgeted else loop_bound(phase_steps)
     if not budgeted and K * cap >= 2**31 - 1:
         raise ValueError(f"max_segments * max_steps must stay below 2^31, got {K} * {cap}")
+    plan = segments_plan(K)
     SEGMENTS_KERNEL(
         *world_args(world), ptr(a), ptr(b), n, K, cap, int(budgeted),
         int(step_budget) if budgeted else 0, stride, int(world.twig.shape[0]),
-        int(num_materials), ptr(out.slot), ptr(out.t0), ptr(out.t1), ptr(out.count),
+        int(num_materials), plan.cols, plan.smem, ptr(out.slot), ptr(out.t0), ptr(out.t1),
+        ptr(out.count),
     )
     return out
 

@@ -112,9 +112,17 @@ def _shade_cuda(res: MarchResult, o, d, eye, lights: LightRig,
                 shadow_factor=None, atlas=None, envmap=None) -> dict:
     """Launch K2 on PyTorch's current stream; outputs allocated here."""
     dev = o.device
+    return _shade_launch(res, o, d, eye, to_device(materials.to_matrix(), dev),
+                         to_device(lights.to_vector(), dev), cfg, shadow_factor, atlas,
+                         envmap)
+
+
+def _shade_launch(res: MarchResult, o, d, eye, mats, light_vec, cfg: RenderConfig,
+                  shadow_factor=None, atlas=None, envmap=None) -> dict:
+    """K2's launch with the material matrix and light vector already on the
+    card (no host copy, so it can be captured in a CUDA graph)."""
+    dev = o.device
     n = o.shape[0]
-    mats = to_device(materials.to_matrix(), dev)
-    light_vec = to_device(lights.to_vector(), dev)
     f32 = torch.float32
     per_ray = {"hit": (res.hit, torch.bool), "t": (res.t, f32),
                "material": (res.material, torch.int32), "cell_bmin": (res.cell_bmin, f32),

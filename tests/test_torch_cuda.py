@@ -33,6 +33,7 @@ from octree_raymarcher_tpu_torch.diff.segments import (
     SegmentBatch,
     sample_segments,
     sample_segments_plain,
+    segments_plan,
 )
 from octree_raymarcher_tpu_torch.ops.march import MARCH_KERNEL, march, march_plain
 from octree_raymarcher_tpu_torch.shade import (
@@ -62,6 +63,8 @@ from octree_raymarcher_tpu_torch.world.alloc import (
 )
 from octree_raymarcher_tpu_torch.world.device import TorchWorld
 from octree_raymarcher_tpu_torch.world.world import World
+
+from test_torch_scenes import SCENES, scene_rays, scene_torch
 
 pytestmark = pytest.mark.cuda
 
@@ -182,6 +185,61 @@ def test_segments_kernel_matches_plain(gpu_scene, budget):
     assert SEGMENTS_KERNEL.launches == before + 1
     _exact(got, ref, ("slot", "t0", "t1", "count"))
     assert int(got.count.max()) >= 2
+
+
+def _scene_on_card(name):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    o, d = (torch.from_numpy(x).cuda() for x in scene_rays(name))
+    return scene_torch(name, "cuda"), o, d
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_scene_march_kernel_matches_plain(name):
+    """K1, which reuses each ray's octree path from step to step, on the
+    scenes built to break that (tests/test_torch_scenes.py): bit for bit
+    equal to march_plain with and without the residency test, resumed from
+    t_start mid-march and inside twigs, and with a budget."""
+    world, o, d = _scene_on_card(name)
+    for resident in (False, True):
+        got = march(world, o, d, max_steps=512, steps_aov=True, assume_resident=resident,
+                    device="cuda")
+        ref = march_plain(world, o, d, 512, True, None, None, resident)
+        _exact(got, ref, FIELDS)
+    # resume: rays still live after a few steps from their current t, and
+    # rays that hit a texel from just before it, inside its twig
+    part = march_plain(world, o, d, 6, False, None, None, False, None, 16, True)
+    mid = torch.isfinite(part.t) & ~part.hit
+    full = march_plain(world, o, d, 512, False, None, None, False)
+    in_twig = full.hit & (full.texel >= 0)
+    t_start = torch.where(mid, part.t, torch.where(in_twig, full.t * 0.999, 0.0))
+    live = (mid | in_twig).to(torch.int32)
+    assert int(mid.sum()) > 10 and int(in_twig.sum()) > 10
+    got = march(world, o, d, max_steps=512, steps_aov=True, t_start=t_start, live_start=live,
+                device="cuda")
+    ref = march_plain(world, o, d, 512, True, t_start, live, False)
+    _exact(got, ref, FIELDS)
+    budget = torch.arange(o.shape[0], device=o.device, dtype=torch.int32) % 97
+    got = march(world, o, d, max_steps=128, step_budget=budget, steps_stride=8, device="cuda")
+    ref = march_plain(world, o, d, 128, False, None, None, False, budget, 8, False)
+    _exact(got, ref, FIELDS)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_scene_segments_kernel_matches_plain(name):
+    """K4 carries each ray's octree path across its phases and writes its
+    rows through staged windows: equal to sample_segments_plain at K = 1, 32
+    and 300 (many windows, the last one partial), with and without a
+    budget."""
+    world, o, d = _scene_on_card(name)
+    for K in (1, 32, 300):
+        assert segments_plan(K).cols <= K
+        for budget in (None, 40):
+            kw = dict(max_segments=K, max_steps=256, step_budget=budget, steps_stride=8)
+            before = SEGMENTS_KERNEL.launches
+            got = sample_segments(world, o, d, device="cuda", **kw)
+            assert SEGMENTS_KERNEL.launches == before + 1
+            _exact(got, sample_segments_plain(world, o, d, **kw), ("slot", "t0", "t1", "count"))
 
 
 # Synthetic segment batches for K5/K6 (also held against JAX on the CPU in

@@ -62,6 +62,8 @@ from octree_raymarcher_tpu_torch.world.world import World
 from octree_raymarcher_tpu_torch.worldgen import BoundsPyramid, grow
 
 from test_golden import _check, _thumb
+from test_torch_march import jax_device_world
+from test_torch_scenes import SCENES, make_scene, scene_rays
 
 PYR = dict(size=32, amplitude=8.0, period=1.0 / 32, xshift=0.0, yshift=12.0, zshift=0.0,
            seed=11)
@@ -255,6 +257,32 @@ def test_budgeted_sampler_at_cap(dworld, grazing):
     assert (_np(got.count) < _np(free.count)).any(), "budget never bound"
     # without a budget the port's oracle equals its fast sampler here
     _assert_segments(sample_segments_ref(tw, o, d, max_segments=16), free)
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_scene_sampler_matches_jax(name):
+    """The scenes of tests/test_torch_scenes.py at K=4 (each phase resumes
+    with the path it left): JAX sample_segments and sample_segments_plain,
+    exact count, >= 99.9% slot agreement as on the oblique camera."""
+    _, packed = make_scene(name)
+    o, d = scene_rays(name)
+    ref = jax_sample_segments_frame(jax_device_world(packed), o, d, max_segments=4)
+    got = sample_segments(TorchWorld.from_numpy(packed, device="cpu"), o, d, max_segments=4,
+                          device="cpu")
+    _assert_segments(got, ref, slot_agree=0.999)
+    assert _np(got.count).max() == 4 and _np(got.count).min() == 0
+
+
+def test_segments_plan():
+    """K4's launch plan for every K from 1 to 512: a window of at most
+    WINDOW columns, and a block's staging (three planes of 32 rows per warp
+    at an odd row pitch) within 48 KB."""
+    from octree_raymarcher_tpu_torch.diff.segments import THREADS, WINDOW, segments_plan
+
+    for K in range(1, 513):
+        plan = segments_plan(K)
+        assert plan.cols == min(K, WINDOW)
+        assert plan.smem == (THREADS // 32) * 3 * 32 * (plan.cols | 1) * 4 <= 48 * 1024
 
 
 # ---- B5: the compositor ---------------------------------------------------------

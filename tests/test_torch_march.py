@@ -16,6 +16,7 @@ from octree_raymarcher_tpu.core.constants import EPS
 from octree_raymarcher_tpu.march import cpu_ref
 from octree_raymarcher_tpu.ops.march_jnp import march as jax_march
 from octree_raymarcher_tpu.shade.camera import PerspectiveCamera
+from octree_raymarcher_tpu.world.device import DeviceWorld
 from octree_raymarcher_tpu.world.device import pack_chunks as jax_pack_chunks
 from octree_raymarcher_tpu.world.device import single_chunk_world
 from octree_raymarcher_tpu.world.world import World as JaxWorld
@@ -25,6 +26,8 @@ from octree_raymarcher_tpu_torch.ops.march import MARCH_KERNEL, march, march_pla
 from octree_raymarcher_tpu_torch.world.device import TorchWorld, pack_chunks
 from octree_raymarcher_tpu_torch.world.world import World
 from octree_raymarcher_tpu_torch.worldgen import BoundsPyramid, grow
+
+from test_torch_scenes import SCENES, make_scene, scene_rays
 
 PERTURB = 4 * EPS   # boundary-grazing classification radius
 FIELDS = ("hit", "material", "texel", "cell_bmin", "cell_size", "steps")
@@ -184,3 +187,31 @@ def test_steps_aov_off_and_resident(scene, rng):
     c = march_plain(tworld, torch.as_tensor(o), torch.as_tensor(d), 64, True)
     np.testing.assert_array_equal(a.steps.numpy(), c.steps.numpy())
     assert MARCH_KERNEL.launches == before
+
+
+def jax_device_world(packed) -> DeviceWorld:
+    """The JAX package's DeviceWorld over the same packed pools."""
+    import jax.numpy as jnp
+
+    return DeviceWorld(**{k: jnp.asarray(getattr(packed, k)) for k in (
+        "tree", "twig", "twig_occ", "chunk_bmin", "chunk_tree", "chunk_twig",
+        "chunkcoordmin")}, chunksize=float(packed.chunksize), dims=tuple(packed.dims),
+        depth=int(packed.depth))
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_scene_parity(name):
+    """The scenes of tests/test_torch_scenes.py (wrapped chunk indices, a
+    non-resident chunk, coarse LEAFs beside twigs, rays on cell faces, a
+    depth-10 world): the JAX march and march_plain, from the world entry
+    and resumed from t_start mid-march."""
+    host, packed = make_scene(name)
+    jw = jax_device_world(packed)
+    tw = TorchWorld.from_numpy(packed, device="cpu")
+    o, d = scene_rays(name)
+    _, got = _assert_parity(jw, tw, host, o, d, max_steps=512)
+    assert got["hit"].any() and not got["hit"].all()
+    t_start = np.where(got["hit"], got["t"] * 0.75, 3.0).astype(np.float32)
+    live = (np.arange(len(o)) % 5 != 0).astype(np.int32)
+    _assert_parity(jw, tw, host, o, d, max_steps=512, t_start=t_start, live_start=live)
+
