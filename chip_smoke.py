@@ -18,18 +18,25 @@ order, and then:
   6. renders the frame with render_frame(shadow="none") through both kernels,
      plain and textured, and times it with CUDA events; the launch counters
      are zeroed just before this phase and read just after; then times each
-     kernel and plain version alone (K2 also replayed from a CUDA graph, its
-     device time), and K1 under two other ray orders;
+     kernel and plain version alone (K2 also replayed from a CUDA graph with
+     its inputs rotated past the L2, its device time), and K1 under two
+     other ray orders;
   7. renders the golden scene of tests/test_golden.py on the card and checks
      it against the committed golden thumbnails;
   8. shadows: holds K3's three entries (ray_prep, shadow_resolve,
      map_project) and K1 on the shadow rays and on the 512x512 light bundle
      against their plain versions on all rays (K1 bit for bit, with its
-     steps, load counts and bound for both), then renders and times the
-     frames shadow="ray", shadow="map" and the full reference frame (map +
-     atlas + sky map),
-     each with the launch counters zeroed just before and read just after,
-     and checks the ray- and map-shadow goldens on the card;
+     steps, load counts and bound for both), and the two fused kernels of
+     the map-shadowed frame against their plain compositions: K1's
+     light-depth instantiation (march_depth) against shadow_resolve of the
+     march, and the map-shadowed K2 against K2 fed map_project's factor, bit
+     for bit; then renders and times the frames shadow="ray", shadow="map"
+     and the full reference frame (map + atlas + sky map), each with the
+     launch counters zeroed just before and read just after and held to
+     their kernels a frame (map and full: K1 twice, K2 once, no K3), drives
+     the standalone K3 passes, times every K3 kernel and both fused kernels
+     as device time in a CUDA graph (inputs rotated past the L2) beside the
+     loops of calls, and checks the ray- and map-shadow goldens on the card;
   9. geometry: holds the segment sampler K4 at K=32 against its plain
      version on every 16th ray, with and without a step budget, then on all
      2,073,600 rays without one, and times both there; K4's SIMT efficiency
@@ -54,16 +61,18 @@ order, and then:
      timed on each batch, and the saved world is loaded back.
 
 Phase 1 prints the card's name and power limit (nvidia-smi) and ptxas's
-registers, shared memory and spills for K1 and K4.  Every phase prints its
+registers, shared memory and spills for every instantiation of K1, K2 and
+K4.  Every phase prints its
 lines; any failure raises and the script exits nonzero without printing a
 result.  The line before the last is a JSON object with one entry per
-kernel (times, launches, bounds); the last line is {"ok": true, "device":
-{...}}.  With no CUDA device it exits 1 at once.
+kernel (times, launches and the path that made them, bounds); the last
+line is {"ok": true, "device": {...}}.  With no CUDA device it exits 1 at once.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -106,6 +115,7 @@ PATH_LEVELS = 8                 # csrc/march_step.cuh kPathLevels
 REF_STEPS = 50_006_052          # roofline_march.json true_ray_steps_per_frame
 REF_HIT_FRAC = 0.642            # docs/PERF_NOTES.md, plain frame
 TIMED_ITERS = 20
+L2_BYTES = 50 * 2**20           # the H100's L2 cache
 
 
 def fail(msg: str):
@@ -157,6 +167,38 @@ def graph_ms(fn, iters: int) -> float:
     return cuda_ms(graph.replay, 5) / iters
 
 
+def _tensors(x) -> list:
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if dataclasses.is_dataclass(x):
+        x = [getattr(x, f.name) for f in dataclasses.fields(x)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+def _clone(x):
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{f.name: _clone(getattr(x, f.name))
+                                         for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+        return tuple(_clone(v) for v in x)
+    return x
+
+
+def cold_graph_ms(fn, args: tuple, iters: int) -> float:
+    """graph_ms of fn(*args) with each launch on the next of several copies
+    of the tensors in ``args``, which together span at least twice the L2:
+    a launch reads its inputs from memory, where the HBM bound applies, and
+    not from the L2 lines the launch before it left."""
+    size = sum(t.nbytes for t in _tensors(args))
+    copies = [args] + [_clone(args) for _ in range(-(-2 * L2_BYTES // size) - 1)]
+    turn = itertools.cycle(copies)
+    return graph_ms(lambda: fn(*next(turn)), len(copies) * -(-iters // len(copies)))
+
+
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.numel() == 0:
         return 0.0
@@ -180,7 +222,7 @@ def ptxas_report(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for tag in ("march_kernel", "segments_kernel"):
+            for tag in ("march_kernel", "segments_kernel", "shade_kernel"):
                 if tag in name:
                     args = re.findall(r"L[bi](\d+)E", name.split(tag, 1)[1])
                     name = f"{tag}<{','.join(args)}>"
@@ -460,7 +502,14 @@ def main() -> int:
         return 1
 
     from octree_raymarcher_tpu_torch import kernels
-    from octree_raymarcher_tpu_torch.ops.march import MARCH_KERNEL, march, march_plain
+    from octree_raymarcher_tpu_torch.ops.march import (
+        MARCH_DEPTH_KERNEL,
+        MARCH_KERNEL,
+        march,
+        march_depth,
+        march_depth_plain,
+        march_plain,
+    )
     from octree_raymarcher_tpu_torch.shade import (
         LightRig,
         MaterialTable,
@@ -496,13 +545,15 @@ def main() -> int:
     from octree_raymarcher_tpu_torch.shade import shadow as S
     from octree_raymarcher_tpu_torch.shade.render import (
         SHADE_KERNEL,
+        SHADE_MAP_KERNEL,
         _ray_shadow_hits,
         _shade_launch,
     )
     from octree_raymarcher_tpu_torch.world.alloc import PATCH_KERNEL
     from octree_raymarcher_tpu_torch.world.world import World
 
-    counters = {"march": MARCH_KERNEL, "shade": SHADE_KERNEL,
+    counters = {"march": MARCH_KERNEL, "march_depth": MARCH_DEPTH_KERNEL,
+                "shade": SHADE_KERNEL, "shade_map": SHADE_MAP_KERNEL,
                 "ray_prep": S.RAY_PREP_KERNEL, "shadow_resolve": S.SHADOW_RESOLVE_KERNEL,
                 "map_project": S.MAP_PROJECT_KERNEL, "segments": SEGMENTS_KERNEL,
                 "composite_fwd": COMPOSITE_FWD_KERNEL,
@@ -530,7 +581,7 @@ def main() -> int:
     print(f"phase 1 build: {time.time() - t0:.2f} s, {kind}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}; ptxas: {regs}", flush=True)
     for name, info in ptxas_report(kernels.build_log()).items():
-        if "march_kernel" in name or "segments_kernel" in name:
+        if any(k in name for k in ("march_kernel", "segments_kernel", "shade_kernel")):
             print(f"phase 1 ptxas {name}: {info}", flush=True)
 
     # ---- 2. bench world: generate, pack, upload -----------------------------
@@ -661,14 +712,15 @@ def main() -> int:
                                         atlas=atlas, envmap=env), TIMED_ITERS)
     mats_dev = mats.to_matrix().to(dev)
     light_dev = torch.as_tensor(lights.to_vector(), dtype=torch.float32).to(dev)
-    k2g_ms = graph_ms(lambda: _shade_launch(rf, O, D, eye, mats_dev, light_dev, cfg),
-                      TIMED_ITERS)
-    k2tg_ms = graph_ms(lambda: _shade_launch(rf, O, D, eye, mats_dev, light_dev, cfg,
-                                             atlas=atlas, envmap=env), TIMED_ITERS)
+    k2g_ms = cold_graph_ms(lambda r, o, d: _shade_launch(r, o, d, eye, mats_dev, light_dev,
+                                                         cfg), (rf, O, D), TIMED_ITERS)
+    k2tg_ms = cold_graph_ms(lambda r, o, d: _shade_launch(r, o, d, eye, mats_dev, light_dev,
+                                                          cfg, atlas=atlas, envmap=env),
+                            (rf, O, D), TIMED_ITERS)
     print(f"phase 6 kernels alone: K1 {k1_ms:.4f} ms (plain {p1_ms:.2f} ms), K1 with "
           f"step_budget=512, steps_stride=16 {k1b_ms:.4f} ms (exact vs plain: mismatching rays "
           f"{bmism}), K2 {k2_ms:.4f} ms (plain {p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms; "
-          f"K2 device time per launch in a CUDA graph of {TIMED_ITERS}: {k2g_ms:.4f} ms, "
+          f"K2 device time per launch in a CUDA graph (inputs from memory): {k2g_ms:.4f} ms, "
           f"textured {k2tg_ms:.4f} ms", flush=True)
 
     # K1 under other ray orders: warps of 32 consecutive rays in each order.
@@ -752,27 +804,66 @@ def main() -> int:
           f"march_plain mismatching rays (t bit for bit): shadow rays {smism}, light bundle "
           f"{lmism}; steps: shadow rays {sray_steps}, light bundle {light_steps}", flush=True)
 
-    cfg_ray = RenderConfig(shadow="ray", max_steps=512, assume_resident=True)
+    # The fused kernels against their plain compositions, bit for bit: K1's
+    # light-depth instantiation against shadow_resolve_plain of march_plain's
+    # hits (and K3 shadow_resolve of K1's hit record); the map-shadowed K2
+    # against K2 fed K3 map_project's factor (and shade_hits_plain with the
+    # map within K2's tolerance of phase 5: powf and the sky's libm calls).
     cfg_map = RenderConfig(shadow="map", max_steps=512, assume_resident=True)
+    smap = (depth_map, vp)
+    depth_f = march_depth(world, lorig, ldirs, vp[2], 512, assume_resident=True, device=dev)
+    depth_fp = S.shadow_resolve_plain(lorig, ldirs, lp.hit, lp.t, vp)
+    torch.cuda.synchronize()
+    md_err = max_abs(depth_f, depth_fp)
+    if not (torch.equal(depth_f, depth_fp) and torch.equal(depth_f, depth_k)):
+        fail(f"light-depth K1 disagrees with shadow_resolve of the march: {md_err}")
+    sm_err = {}
+    for name, kw in (("plain", {}), ("textured", dict(atlas=atlas, envmap=env))):
+        a = shade_hits(rk, O, D, eye, lights, mats, cfg_map, shadowmap=smap, **kw)
+        b = shade_hits(rk, O, D, eye, lights, mats, cfg_map, shadow_factor=fac_k, **kw)
+        c = shade_hits_plain(rk, O, D, eye, lights, mats, cfg_map, shadowmap=smap, **kw)
+        torch.cuda.synchronize()
+        split_bad = {k: int((~(a[k] == b[k]).reshape(n, -1).all(dim=1)).sum())
+                     for k in ("rgb", "depth", "point", "normal")}
+        if any(split_bad.values()):
+            fail(f"map-shadowed K2 ({name}) differs from K2 fed map_project: {split_bad}")
+        errs, bad = {}, 0
+        for k in ("rgb", "depth", "point", "normal"):
+            diff = (a[k] - c[k]).abs()
+            errs[k] = float(diff.max())
+            bad += int((diff > 1e-5 + 1e-4 * c[k].abs()).sum())
+        if bad:
+            fail(f"map-shadowed K2 ({name}) disagrees with shade_hits_plain: {errs}")
+        sm_err[name] = max(errs.values())
+        print(f"phase 8 map-shadowed K2 ({name}): equal to K2 fed map_project's factor on "
+              f"every ray (rgb, depth, point, normal bit for bit); vs shade_hits_plain with the "
+              f"map: max abs err {errs}", flush=True)
+    del a, b, c
+    print(f"phase 8 light-depth K1 vs shadow_resolve_plain of march_plain and vs K3 of K1's "
+          f"record: equal on all {lorig.shape[0]} light rays (max abs err {md_err})",
+          flush=True)
+
+    cfg_ray = RenderConfig(shadow="ray", max_steps=512, assume_resident=True)
+    map_path = {"march_depth": 1, "march": 1, "shade_map": 1}
     shadow_frames = {
         "ray": (lambda: render_frame(world, O, D, eye, cfg=cfg_ray, device=dev),
-                ("march", "ray_prep", "shade")),
-        "map": (lambda: render_frame(world, O, D, eye, cfg=cfg_map, device=dev),
-                ("march", "shadow_resolve", "map_project", "shade")),
+                {"march": 2, "ray_prep": 1, "shade": 1}),
+        "map": (lambda: render_frame(world, O, D, eye, cfg=cfg_map, device=dev), map_path),
         "full": (lambda: render_frame(world, O, D, eye, cfg=cfg_map, atlas=atlas, envmap=env,
-                                      device=dev),
-                 ("march", "shadow_resolve", "map_project", "shade")),
+                                      device=dev), map_path),
     }
     shadow_ms, shadow_launches = {}, {}
-    for name, (fn, path) in shadow_frames.items():
+    for name, (fn, per_frame) in shadow_frames.items():
         zero_counts()
         shadow_ms[name] = cuda_ms(fn, TIMED_ITERS)
         out_s = fn()
         torch.cuda.synchronize()
-        shadow_launches[name] = {k: v for k, v in read_counts().items() if v}
-        for k in path:
-            if read_counts()[k] == 0:
-                fail(f"kernel {k} was not launched by the {name} frame")
+        counts = read_counts()
+        shadow_launches[name] = {k: v for k, v in counts.items() if v}
+        # cuda_ms's warm-up, its TIMED_ITERS frames and the one above
+        want = {k: per_frame.get(k, 0) * (TIMED_ITERS + 2) for k in counts}
+        if counts != want:
+            fail(f"the {name} frame launched {shadow_launches[name]}, want {per_frame} a frame")
         if (tuple(out_s["rgb"].shape) != (n, 3)
                 or not bool(torch.isfinite(out_s["rgb"]).all())):
             fail(f"{name} frame rgb is not finite f32[N,3]")
@@ -788,7 +879,28 @@ def main() -> int:
           f"{ {k: round(n / (v / 1e3)) for k, v in shadow_ms.items()} }; shadowed pixel "
           f"fraction {shadowed_frac} (of hit pixels: "
           f"{ {k: float(v.sum()) / hit_n for k, v in shadowed.items()} }); launches over "
-          f"{TIMED_ITERS + 2} frames each {shadow_launches}", flush=True)
+          f"{TIMED_ITERS + 2} frames each {shadow_launches} (map and full: no K3 "
+          f"shadow_resolve or map_project)", flush=True)
+
+    # The standalone shadow passes: public entry points of shade/shadow.py
+    # that no frame runs any more (a light depth resolved from a march the
+    # caller made, the map shadow of hit records and of given points).
+    zero_counts()
+    k3_out = (S.shadow_resolve(lorig, ldirs, lres.hit, lres.t, vp),
+              S.map_project(rk, O, D, depth_map, vp, cfg.shadow_bias),
+              S.map_shadow(out["point"], depth_map, vp, cfg.shadow_bias, device=dev))
+    torch.cuda.synchronize()
+    k3_launches = read_counts()
+    pts_plain = S.map_shadow_plain(out["point"], depth_map, vp, cfg.shadow_bias)
+    if not (torch.equal(k3_out[0], depth_k) and torch.equal(k3_out[1], fac_k)
+            and torch.equal(k3_out[2], pts_plain)):
+        fail("the standalone K3 passes disagree with their plain versions")
+    if min(k3_launches[k] for k in ("shadow_resolve", "map_project")) == 0:
+        fail(f"the standalone K3 passes launched {k3_launches}")
+    print(f"phase 8 standalone K3 passes (shadow_resolve, map_project, map_shadow of the "
+          f"frame's points): launches { {k: v for k, v in k3_launches.items() if v} }, exact "
+          f"vs plain", flush=True)
+    del k3_out, pts_plain
 
     rp_ms = cuda_ms(lambda: S.ray_prep(rk, O, D, ldir), TIMED_ITERS)
     rp_plain_ms = cuda_ms(lambda: S.ray_prep_plain(rk, O, D, ldir), 5)
@@ -798,10 +910,48 @@ def main() -> int:
                     TIMED_ITERS)
     mp_plain_ms = cuda_ms(lambda: S.map_project_plain(rk, O, D, depth_map, vp,
                                                       cfg.shadow_bias), 5)
+    md_ms = cuda_ms(lambda: march_depth(world, lorig, ldirs, vp[2], 512, assume_resident=True,
+                                        device=dev), TIMED_ITERS)
+    md_plain_ms = cuda_ms(lambda: march_depth_plain(world, lorig, ldirs, vp[2], 512,
+                                                    assume_resident=True), 2)
+    sm_ms = cuda_ms(lambda: shade_hits(rk, O, D, eye, lights, mats, cfg_map, shadowmap=smap),
+                    TIMED_ITERS)
+    sm_plain_ms = cuda_ms(lambda: shade_hits_plain(rk, O, D, eye, lights, mats, cfg_map,
+                                                   shadowmap=smap), 5)
     sray_ms = cuda_ms(lambda: march(world, start, sdirs, 512, live_start=live, device=dev),
                       TIMED_ITERS)
     light_ms = cuda_ms(lambda: march(world, lorig, ldirs, 512, assume_resident=True,
                                      device=dev), TIMED_ITERS)
+    # device time per launch, replayed from a CUDA graph with the inputs
+    # rotated past the L2 (cold_graph_ms; the loops above time the host's
+    # launch path for the microsecond kernels).  The marches share the
+    # world's pools, as every march of a frame does.
+    shade_in = (rk, O, D, smap)
+    dev_ms = {
+        "ray_prep": cold_graph_ms(lambda r, o, d: S.ray_prep(r, o, d, ldir), (rk, O, D),
+                                  TIMED_ITERS),
+        "shadow_resolve": cold_graph_ms(S.shadow_resolve, (lorig, ldirs, lres.hit, lres.t, vp),
+                                        TIMED_ITERS),
+        "map_project": cold_graph_ms(
+            lambda r, o, d, dm, m: S.map_project(r, o, d, dm, m, cfg.shadow_bias),
+            (rk, O, D, depth_map, vp), TIMED_ITERS),
+        "march light bundle": cold_graph_ms(
+            lambda o, d: march(world, o, d, 512, assume_resident=True, device=dev),
+            (lorig, ldirs), TIMED_ITERS),
+        "march_depth": cold_graph_ms(
+            lambda o, d, row: march_depth(world, o, d, row, 512, assume_resident=True,
+                                          device=dev), (lorig, ldirs, vp[2]), TIMED_ITERS),
+        "shade_map": cold_graph_ms(
+            lambda r, o, d, m: _shade_launch(r, o, d, eye, mats_dev, light_dev, cfg_map,
+                                             shadowmap=m), shade_in, TIMED_ITERS),
+        "shade_map textured": cold_graph_ms(
+            lambda r, o, d, m: _shade_launch(r, o, d, eye, mats_dev, light_dev, cfg_map,
+                                             atlas=atlas, envmap=env, shadowmap=m),
+            shade_in, TIMED_ITERS),
+    }
+    print(f"phase 8 device ms per launch in a CUDA graph, inputs from memory: {dev_ms} (K2 "
+          f"without the map: {k2g_ms:.4f}, textured {k2tg_ms:.4f})", flush=True)
+
     pools_k1 = (packed.tree.nbytes + packed.twig_occ.nbytes + packed.chunk_bmin.nbytes
                 + 2 * packed.chunk_tree.nbytes)
     n_light = lorig.shape[0]
@@ -811,9 +961,11 @@ def main() -> int:
                       MARCH_OPS_PER_STEP * sray_steps)
     b_light = bound_ms(n_light * (24 + 33) + pools_k1 + 4 * int((lk.texel >= 0).sum()),
                        MARCH_OPS_PER_STEP * light_steps)
-    print(f"phase 8 kernels alone: ray_prep {rp_ms:.4f} ms (plain {rp_plain_ms:.3f}), "
-          f"shadow_resolve {rs_ms:.4f} ms (plain {rs_plain_ms:.3f}), map_project "
-          f"{mp_ms:.4f} ms (plain {mp_plain_ms:.3f}); K1 on the shadow rays {sray_ms:.4f} ms "
+    print(f"phase 8 kernels alone (CUDA events over a loop of calls): ray_prep {rp_ms:.4f} ms "
+          f"(plain {rp_plain_ms:.3f}), shadow_resolve {rs_ms:.4f} ms (plain {rs_plain_ms:.3f}), "
+          f"map_project {mp_ms:.4f} ms (plain {mp_plain_ms:.3f}), light-depth K1 {md_ms:.4f} ms "
+          f"(plain {md_plain_ms:.3f}), map-shadowed K2 {sm_ms:.4f} ms (plain "
+          f"{sm_plain_ms:.3f}); K1 on the shadow rays {sray_ms:.4f} ms "
           f"(bound {b_sray[0]:.4f} ms by {b_sray[1]}, {sray_steps} steps, SIMT efficiency "
           f"{simt_efficiency(sk.steps):.4f}), K1 on the 512x512 light bundle {light_ms:.4f} ms "
           f"(bound {b_light[0]:.4f} ms by {b_light[1]}, {light_steps} steps, SIMT efficiency "
@@ -1057,43 +1209,69 @@ def main() -> int:
     b_rp = bound_ms(n * (45 + 28), RAY_PREP_OPS * n)
     b_rs = bound_ms(n_light * (29 + 4), RESOLVE_OPS * n_light)
     b_mp = bound_ms(n * (29 + 4) + depth_map.numel() * 4, PROJECT_OPS * n)
+    # the light-depth K1: o, d in, the depth out, the pools K1 reads (no hit
+    # record, no twig words); the map-shadowed K2: K2's bytes and the depth
+    # map, and the projection (less the hit point K2 has) on every hit
+    b_md = bound_ms(n_light * (24 + 4) + pools_k1,
+                    MARCH_OPS_PER_STEP * light_steps + RESOLVE_OPS * n_light)
+    b_sm = bound_ms(k2_bytes + depth_map.numel() * 4,
+                    SHADE_OPS_PER_RAY * n + (PROJECT_OPS - 7) * int(rk.hit.sum()))
     pools = (packed.tree.nbytes + packed.twig_occ.nbytes + packed.chunk_bmin.nbytes
              + 2 * packed.chunk_tree.nbytes)
     b_seg = bound_ms(n * (24 + 4 + 12 * K) + pools + 4 * (n_valid - n_leaf),
                      MARCH_OPS_PER_STEP * seg_steps + SEGMENT_OPS * n_valid)
 
-    def entry(name, source, replaces, launches_n, err_v, ms, plain, bound, library=None):
+    # path: the run whose counters give launches (the hard frames of phase
+    # 6, the shadowed frames or the standalone K3 passes of phase 8, fit,
+    # the session)
+    def entry(name, source, replaces, path, launches_n, err_v, ms, plain, bound,
+              library=None):
         return {"name": name, "route": "cuda",
                 "source": f"octree_raymarcher_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches_n, "max_abs_err": err_v, "ms": ms,
-                "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": library}
+                "replaces": replaces, "path": path, "launches": launches_n,
+                "max_abs_err": err_v, "ms": ms, "plain_ms": plain, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library}
 
     sl = {k: sum(v.get(k, 0) for v in shadow_launches.values())
-          for k in ("ray_prep", "shadow_resolve", "map_project")}
+          for k in ("ray_prep", "march_depth", "shade_map")}
     report = {"kernels": [
         entry("march", "march.cu", "octree_raymarcher_tpu/ops/march_jnp.py:474",
-              launches["march"], march_err, k1_ms, p1_ms, (b1, by1)),
+              "hard frames", launches["march"], march_err, k1_ms, p1_ms, (b1, by1)),
+        # K2, K3 and the fused kernels: device ms per launch in a CUDA graph,
+        # inputs from memory (their loops of calls are host-bound; phases 6
+        # and 8 print both)
         entry("shade", "shade.cu", "octree_raymarcher_tpu/shade/render.py:62",
-              launches["shade"], max(shade_err.values()), k2_ms, p2_ms, (b2, by2)),
+              "hard frames", launches["shade"], max(shade_err.values()), k2g_ms, p2_ms,
+              (b2, by2)),
         entry("ray_prep", "shadow.cu", "octree_raymarcher_tpu/shade/render.py:139",
-              sl["ray_prep"], prep_err, rp_ms, rp_plain_ms, b_rp),
+              "shadowed frames", sl["ray_prep"], prep_err, dev_ms["ray_prep"], rp_plain_ms,
+              b_rp),
+        # no frame launches these two any more
         entry("shadow_resolve", "shadow.cu", "octree_raymarcher_tpu/shade/render.py:252",
-              sl["shadow_resolve"], resolve_err, rs_ms, rs_plain_ms, b_rs),
+              "standalone K3 passes", k3_launches["shadow_resolve"], resolve_err,
+              dev_ms["shadow_resolve"], rs_plain_ms, b_rs),
         entry("map_project", "shadow.cu", "octree_raymarcher_tpu/shade/render.py:364",
-              sl["map_project"], project_err, mp_ms, mp_plain_ms, b_mp),
+              "standalone K3 passes", k3_launches["map_project"], project_err,
+              dev_ms["map_project"], mp_plain_ms, b_mp),
+        # the map and full frames' light pass and shading
+        entry("march_depth", "march.cu", "octree_raymarcher_tpu/shade/render.py:210",
+              "shadowed frames", sl["march_depth"], md_err, dev_ms["march_depth"],
+              md_plain_ms, b_md),
+        entry("shade_map", "shade.cu", "octree_raymarcher_tpu/shade/render.py:427",
+              "shadowed frames", sl["shade_map"], max(sm_err.values()), dev_ms["shade_map"],
+              sm_plain_ms, b_sm),
         entry("segments", "segments.cu", "octree_raymarcher_tpu/diff/segments.py:96",
-              fit_launches["segments"], seg_err, seg_ms, seg_plain_ms, b_seg),
+              "fit", fit_launches["segments"], seg_err, seg_ms, seg_plain_ms, b_seg),
         entry("composite_fwd", "composite.cu", "octree_raymarcher_tpu/diff/composite.py:89",
-              fit_launches["composite_fwd"], fwd_err, fwd_ms, fwd_plain_ms, b_fwd),
+              "fit", fit_launches["composite_fwd"], fwd_err, fwd_ms, fwd_plain_ms, b_fwd),
         entry("composite_bwd", "composite.cu", "octree_raymarcher_tpu/diff/composite.py:89",
-              fit_launches["composite_bwd"], bwd_err, bwd_ms, bwd_plain_ms, b_bwd),
+              "fit", fit_launches["composite_bwd"], bwd_err, bwd_ms, bwd_plain_ms, b_bwd),
         # per batch, the mean over the session's batches; library_ms: the
         # plain version's slice copy_s alone (no single PyTorch call
         # computes the batch)
         entry("patch", "patch.cu", "octree_raymarcher_tpu/world/alloc.py:167",
-              k7["launches"], k7["err"], k7["ms"], k7["plain_ms"], (k7["bound_ms"], "bytes"),
-              k7["library_ms"]),
+              "session", k7["launches"], k7["err"], k7["ms"], k7["plain_ms"],
+              (k7["bound_ms"], "bytes"), k7["library_ms"]),
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

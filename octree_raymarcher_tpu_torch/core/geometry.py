@@ -107,5 +107,13 @@ def inverse_depth(dist):
     return (1.0 / torch.clamp_min(dist, 1e-6) - inv_near) / const(dist, inv_far - inv_near)
 
 
-__all__ = ["is_inside", "inv_dir", "escape_distance", "enter_distance", "cube_normal",
+def vp_row(p, m):
+    """One row ``m`` (4 floats) of a view-projection times [p, 1] for
+    points p f32[N,3], summed in the CUDA kernels' fixed order
+    ((p.x*m0 + p.y*m1) + p.z*m2) + m3 (csrc/shadow.cuh row_dot)."""
+    m = [float(v) for v in m]
+    return ((p[:, 0] * m[0] + p[:, 1] * m[1]) + p[:, 2] * m[2]) + m[3]
+
+
+__all__ = ["vp_row", "is_inside", "inv_dir", "escape_distance", "enter_distance", "cube_normal",
            "cube_uv", "inverse_depth", "dot", "length", "normalize", "const"]

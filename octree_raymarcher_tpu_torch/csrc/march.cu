@@ -39,8 +39,19 @@
 // main-path march carries no budget state.  Arithmetic follows march_plain
 // (ops/march.py) operation for operation; with -fmad=false the two agree bit
 // for bit.
+//
+// The light pass of the shadow map (render_shadowmap) runs a third
+// instantiation, march_kernel<false, true>, whose epilogue replaces the
+// resolve of the JAX package's `_shadowmap_device` (shade/render.py:233-237):
+// it writes only the light depth of the ray, row 2 of vp*[o + d*t, 1] where
+// it hit and 1.0 where it missed (shadow.cuh light_depth, the arithmetic of
+// K3's shadow_resolve), and skips the 33-byte hit record and the separate
+// pass that read it back.  The march body is the same code; the epilogue is
+// a template parameter so the camera-ray and shadow-ray instantiations
+// compile as before.
 
 #include "march_step.cuh"
+#include "shadow.cuh"
 
 namespace ort {
 namespace {
@@ -66,9 +77,11 @@ struct MarchArgs {
     float* out_cell_size;
     int32_t* out_steps;
     int32_t* out_texel;
+    float depth_row[4];          // kDepth: row 2 of the light's view-projection
+    float* out_depth;            // kDepth: the light depth per ray
 };
 
-template <bool kBudget>
+template <bool kBudget, bool kDepth>
 __global__ void __launch_bounds__(kPathThreads, kMinBlocks) march_kernel(const MarchArgs a) {
     const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= a.n) return;
@@ -92,6 +105,11 @@ __global__ void __launch_bounds__(kPathThreads, kMinBlocks) march_kernel(const M
                                             kBudget ? a.step_budget[r] : 0, a.stride,
                                             a.assume_resident != 0, path);
 
+    if constexpr (kDepth) {
+        a.out_depth[r] = light_depth(a.depth_row, {q.ax, q.ay, q.az}, {q.bx, q.by, q.bz},
+                                     s.hit, s.t);
+        return;
+    }
     a.out_hit[r] = s.hit ? 1 : 0;
     a.out_t[r] = (s.hit || (a.expose_live_t && s.live)) ? s.t : INFINITY;
     a.out_material[r] = s.rec.material;
@@ -141,10 +159,38 @@ int ort_march(const void* tree, const void* twig, const void* twig_occ,
         const unsigned blocks = (unsigned)((n + threads - 1) / threads);
         const cudaStream_t st = static_cast<cudaStream_t>(stream);
         if (a.step_budget != nullptr) {
-            ort::march_kernel<true><<<blocks, threads, 0, st>>>(a);
+            ort::march_kernel<true, false><<<blocks, threads, 0, st>>>(a);
         } else {
-            ort::march_kernel<false><<<blocks, threads, 0, st>>>(a);
+            ort::march_kernel<false, false><<<blocks, threads, 0, st>>>(a);
         }
+    }
+    return (int)cudaGetLastError();
+}
+
+// The light pass of the shadow map: K1 with the light-depth epilogue, from
+// the world entry, no budget.  `depth_row` is row 2 of the light's 4x4
+// view-projection (4 floats on the host).  Returns cudaGetLastError().
+int ort_march_depth(const void* tree, const void* twig, const void* twig_occ,
+                    const void* chunk_bmin, const void* chunk_tree, const void* chunk_twig,
+                    const void* chunkcoordmin, float chunksize, int w, int h, int d,
+                    int depth, int64_t twig_len, int64_t occ_len, const void* o,
+                    const void* dirs, int64_t n, int cap, int assume_resident,
+                    const void* depth_row, void* out_depth, void* stream) {
+    ort::MarchArgs a = {};
+    a.world = ort::world_args(tree, twig, twig_occ, chunk_bmin, chunk_tree, chunk_twig,
+                              chunkcoordmin, chunksize, w, h, d, depth, twig_len, occ_len);
+    a.o = static_cast<const float*>(o);
+    a.dirs = static_cast<const float*>(dirs);
+    a.n = n; a.cap = cap;
+    a.assume_resident = assume_resident;
+    const float* row = static_cast<const float*>(depth_row);
+    for (int i = 0; i < 4; ++i) a.depth_row[i] = row[i];
+    a.out_depth = static_cast<float*>(out_depth);
+    if (n > 0) {
+        const int threads = ort::kPathThreads;
+        const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+        const cudaStream_t st = static_cast<cudaStream_t>(stream);
+        ort::march_kernel<false, true><<<blocks, threads, 0, st>>>(a);
     }
     return (int)cudaGetLastError();
 }

@@ -18,12 +18,22 @@
 // temporaries (hundreds of bytes per ray in the plain PyTorch version)
 // become one read of each input and one write of each output.
 //
+// The map-shadowed frame (shadow="map") runs the second instantiation,
+// shade_kernel<true>: it takes the light depth map, its view-projection and
+// bias by value and computes the map-shadow factor of render.py:428-439 in
+// registers from the hit point it shades (shadow.cuh map_shadowed, the
+// arithmetic of K3's map_project, times the hit mask).  No factor array is
+// written or read, and the frame skips K3's separate pass over the hit
+// records.  shade_kernel<false> takes a precomputed factor (or none) and
+// compiles as before.
+//
 // Arithmetic follows shade_hits_plain (shade/render.py) operation for
 // operation; with -fmad=false only the libm functions (powf, atan2f, acosf,
 // sqrtf is exact) may differ from PyTorch's by an ulp, and powf with the
-// grass shininess of 1000 magnifies that to ~1e-4 relative.
+// grass shininess of 1000 magnifies that to ~1e-4 relative.  The map-shadow
+// factor has no libm call and equals map_project's bit for bit.
 
-#include "common.cuh"
+#include "shadow.cuh"
 
 namespace ort {
 namespace {
@@ -75,6 +85,7 @@ struct ShadeArgs {
     const float* dirs;
     const float* eye;
     const float* shadow;      // nullable: shadow factor per ray
+    ShadowMap map;            // shade_kernel<true>: the light depth map
     const float* materials;   // [M, 10]
     int num_materials;
     const float* lights;      // [50]
@@ -91,6 +102,7 @@ struct ShadeArgs {
     float* out_normal;
 };
 
+template <bool kMap>
 __global__ void __launch_bounds__(128) shade_kernel(const ShadeArgs a) {
     const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= a.n) return;
@@ -141,7 +153,12 @@ __global__ void __launch_bounds__(128) shade_kernel(const ShadeArgs a) {
         specular = mul(specular, texg);
     }
 
-    const float shadow = a.shadow != nullptr ? a.shadow[r] : 0.0f;
+    float shadow;
+    if constexpr (kMap) {
+        shadow = (hit && map_shadowed(a.map, p)) ? 1.0f : 0.0f;
+    } else {
+        shadow = a.shadow != nullptr ? a.shadow[r] : 0.0f;
+    }
     const float lit = 1.0f - shadow;
     const V3 eye = ld3(a.eye);
     const float* L = a.lights;
@@ -240,11 +257,15 @@ __global__ void __launch_bounds__(128) shade_kernel(const ShadeArgs a) {
 
 extern "C" {
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Returns cudaGetLastError() after the launch (0 = launched).  With
+// `shadow_depth` (an [map_h, map_w] light depth map, its row-major 4x4
+// `map_vp` on the host and `map_bias`) the map-shadowed instantiation runs
+// and `shadow` must be null.
 int ort_shade(const void* hit, const void* t, const void* material,
               const void* cell_bmin, const void* cell_size, const void* o,
               const void* dirs, const void* eye, const void* shadow,
-              const void* materials, int num_materials, const void* lights,
+              const void* shadow_depth, int map_h, int map_w, const void* map_vp,
+              float map_bias, const void* materials, int num_materials, const void* lights,
               const void* atlas, int atlas_materials, int atlas_res,
               const void* envmap, int env_h, int env_w, float sky_r, float sky_g,
               float sky_b, float gamma, int64_t n, void* out_rgb, void* out_depth,
@@ -259,6 +280,10 @@ int ort_shade(const void* hit, const void* t, const void* material,
     a.dirs = static_cast<const float*>(dirs);
     a.eye = static_cast<const float*>(eye);
     a.shadow = static_cast<const float*>(shadow);
+    a.map = {};
+    if (shadow_depth != nullptr) {
+        a.map = ort::shadow_map(shadow_depth, map_h, map_w, map_vp, map_bias);
+    }
     a.materials = static_cast<const float*>(materials);
     a.num_materials = num_materials;
     a.lights = static_cast<const float*>(lights);
@@ -277,7 +302,12 @@ int ort_shade(const void* hit, const void* t, const void* material,
     if (n > 0) {
         const int threads = 128;
         const unsigned blocks = (unsigned)((n + threads - 1) / threads);
-        ort::shade_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+        const cudaStream_t st = static_cast<cudaStream_t>(stream);
+        if (shadow_depth != nullptr) {
+            ort::shade_kernel<true><<<blocks, threads, 0, st>>>(a);
+        } else {
+            ort::shade_kernel<false><<<blocks, threads, 0, st>>>(a);
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -19,27 +19,18 @@
 // and map_project adds one 4-byte gather from a 1 MiB depth map that stays
 // in L2.  So each is one pass with every intermediate in registers; the JAX
 // program's [N,4] homogeneous temporaries and the separate hit multiply
-// become one read of each input and one write of each output.  Folding
-// map_project into K2 would save its factor round trip; that is later work.
+// become one read of each input and one write of each output.
 //
-// The light's 4x4 view-projection is built on the host in float32 and
-// passed by value.  vp*[p,1] sums its four terms in one fixed order,
-// ((p.x*m0 + p.y*m1) + p.z*m2) + m3, as the plain versions in
-// shade/shadow.py do; with -fmad=false the kernels equal them bit for bit.
+// The shadowed frames no longer run the last two: render_shadowmap resolves
+// its light depth in K1's epilogue (march.cu, march_depth) and the
+// map-shadowed K2 projects its own hit points (shade.cu), both with the
+// arithmetic of shadow.cuh that these passes use.  They stay as the public
+// shadow_resolve, map_project and map_shadow(points) of shade/shadow.py.
 
-#include "common.cuh"
+#include "shadow.cuh"
 
 namespace ort {
 namespace {
-
-constexpr float kFar = 8192.0f;   // core/constants.py FAR
-
-struct Mat4 { float m[16]; };     // row-major
-
-__device__ __forceinline__ float row_dot(const Mat4& vp, int row, V3 p) {
-    const float* m = vp.m + 4 * row;
-    return ((p.x * m[0] + p.y * m[1]) + p.z * m[2]) + m[3];
-}
 
 __device__ __forceinline__ V3 load3(const float* p, int64_t r) {
     return {p[3 * r], p[3 * r + 1], p[3 * r + 2]};
@@ -103,9 +94,8 @@ struct ResolveArgs {
 __global__ void __launch_bounds__(128) shadow_resolve_kernel(const ResolveArgs a) {
     const int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (r >= a.n) return;
-    const bool hit = a.hit[r] != 0;
-    const V3 p = add(load3(a.o, r), scale(load3(a.d, r), hit ? a.t[r] : kFar));
-    a.out_depth[r] = hit ? row_dot(a.vp, 2, p) : 1.0f;
+    a.out_depth[r] = light_depth(a.vp.m + 8, load3(a.o, r), load3(a.d, r), a.hit[r] != 0,
+                                 a.t[r]);
 }
 
 struct ProjectArgs {
@@ -114,10 +104,7 @@ struct ProjectArgs {
     const float* d;
     const uint8_t* hit;      // nullable with points: no hit mask
     const float* t;
-    const float* depth;      // [H, W] light depth map
-    int H, W;
-    Mat4 vp;
-    float bias;              // bias_texels / (2W), rounded to float32
+    ShadowMap map;
     int64_t n;
     float* out_factor;
 };
@@ -127,28 +114,9 @@ __global__ void __launch_bounds__(128) map_project_kernel(const ProjectArgs a) {
     if (r >= a.n) return;
     const V3 p = a.points != nullptr ? load3(a.points, r)
                                      : hit_point(a.o, a.d, a.hit, a.t, r);
-    const float cx = row_dot(a.vp, 0, p);
-    const float cy = row_dot(a.vp, 1, p);
-    const float cz = row_dot(a.vp, 2, p);
-    const float cw = row_dot(a.vp, 3, p);
-    const float den = fmaxf(fabsf(cw), 1e-12f);
-    const float sg = cw > 0.0f ? 1.0f : (cw < 0.0f ? -1.0f : 0.0f);
-    const float nx = cx / den * sg, ny = cy / den * sg, nz = cz / den * sg;
-    const float u = nx * 0.5f + 0.5f;
-    const float v = ny * 0.5f + 0.5f;
-    const int xi = trunc_clip(u * (float)a.W, 0.0f, (float)(a.W - 1));
-    const int yi = trunc_clip((1.0f - v) * (float)a.H, 0.0f, (float)(a.H - 1));
-    const float pixel_z = __ldg(a.depth + (int64_t)yi * a.W + xi);
-    const bool inside = u >= 0.0f && u <= 1.0f && v >= 0.0f && v <= 1.0f;
-    const bool shadowed = inside && nz > pixel_z + a.bias;
+    const bool shadowed = map_shadowed(a.map, p);
     const bool hit = a.hit == nullptr || a.hit[r] != 0;
     a.out_factor[r] = (shadowed && hit) ? 1.0f : 0.0f;
-}
-
-Mat4 mat4(const float* m) {
-    Mat4 v;
-    for (int i = 0; i < 16; ++i) v.m[i] = m[i];
-    return v;
 }
 
 unsigned blocks_for(int64_t n) { return (unsigned)((n + 127) / 128); }
@@ -210,10 +178,7 @@ int ort_map_project(const void* points, const void* o, const void* d, const void
     a.d = static_cast<const float*>(d);
     a.hit = static_cast<const uint8_t*>(hit);
     a.t = static_cast<const float*>(t);
-    a.depth = static_cast<const float*>(depth);
-    a.H = H; a.W = W;
-    a.vp = ort::mat4(static_cast<const float*>(vp));
-    a.bias = bias;
+    a.map = ort::shadow_map(depth, H, W, vp, bias);
     a.n = n;
     a.out_factor = static_cast<float*>(out_factor);
     if (n > 0) {

@@ -39,8 +39,9 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _WORLD = [_P] * 7 + [_F, _I, _I, _I, _I, _I64, _I64]   # csrc/march_step.cuh world_args
 SIGNATURES = {
     "ort_march": _WORLD + [_P] * 5 + [_I64, _I, _I, _I, _I, _I] + [_P] * 7 + [_P],
-    "ort_shade": [_P] * 10 + [_I, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _I64]
-                 + [_P] * 4 + [_P],
+    "ort_march_depth": _WORLD + [_P, _P, _I64, _I, _I, _P, _P] + [_P],
+    "ort_shade": [_P] * 9 + [_P, _I, _I, _P, _F] + [_P]
+                 + [_I, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _I64] + [_P] * 4 + [_P],
     "ort_ray_prep": [_P] * 8 + [_F, _F, _F, _I64] + [_P] * 3 + [_P],
     "ort_shadow_resolve": [_P] * 5 + [_I64, _P] + [_P],
     "ort_map_project": [_P] * 6 + [_I, _I, _P, _F, _I64, _P] + [_P],
@@ -144,6 +145,13 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def c_floats(values):
+    """Host floats as a ctypes float array: a pointer argument whose values
+    the C entry copies into the kernel's parameters."""
+    vals = [float(v) for v in values]
+    return (ctypes.c_float * len(vals))(*vals)
+
+
 class Kernel:
     """One C entry point of the library, with a count of its launches."""
 
@@ -161,4 +169,4 @@ class Kernel:
         self.launches += 1
 
 
-__all__ = ["Kernel", "build", "build_log", "library", "library_path", "nvcc", "ptr"]
+__all__ = ["Kernel", "c_floats", "build", "build_log", "library", "library_path", "nvcc", "ptr"]

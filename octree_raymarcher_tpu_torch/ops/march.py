@@ -12,12 +12,12 @@ On a CUDA tensor :func:`march` launches the kernel, one thread per ray; on a
 CPU tensor it runs :func:`march_plain`, which repeats the kernel's arithmetic
 op for op on the rays still live.  Semantics kept from the reference:
 
-* the loop bound is ``4 * ceil(max_steps / 4)`` (the reference's while loop
-  runs in unrolls of 4); a ray still live at the bound is a miss, or, with
-  ``_expose_live_t``, reports its current t (the resume support of
-  march_jnp.py:642-652);
+* the loop bound is ``unroll * ceil(max_steps / unroll)`` (the reference's
+  while loop runs in unrolls of ``unroll``, 4 by default); a ray still live
+  at the bound is a miss, or, with ``_expose_live_t``, reports its current t
+  (the resume support of march_jnp.py:642-652);
 * ``step_budget`` (march_jnp.py:596-616): iterations fall into stages of
-  ``stride = max(4, (steps_stride // 4) * 4)``, at most
+  ``stride = max(unroll, (steps_stride // unroll) * unroll)``, at most
   ``ceil(max_steps / stride)`` of them; a ray enters a stage only while its
   charge is below its budget, each stage entered charges a full stride, a
   ray whose budget runs out is a miss, and ``.steps`` returns the charge;
@@ -34,9 +34,9 @@ import dataclasses
 
 import torch
 
-from ..core.constants import BIGEPS, EPS, MAX_STEPS, TWIG_SIZE, TWIG_WORDS
-from ..core.geometry import const, inv_dir
-from ..kernels import Kernel, ptr
+from ..core.constants import BIGEPS, EPS, FAR, MAX_STEPS, TWIG_SIZE, TWIG_WORDS
+from ..core.geometry import const, inv_dir, vp_row
+from ..kernels import Kernel, c_floats, ptr
 from ..world.device import TorchWorld, resolve_device, to_device
 
 T_CLAMP = 1e8      # |t| clamp before cell math (march_jnp._T_CLAMP)
@@ -44,6 +44,7 @@ _U30 = (1 << 30) - 1
 _BRANCH, _LEAF, _TWIG = 2, 1, 3
 
 MARCH_KERNEL = Kernel("ort_march")
+MARCH_DEPTH_KERNEL = Kernel("ort_march_depth")
 
 
 @dataclasses.dataclass
@@ -57,15 +58,18 @@ class MarchResult:
     texel: torch.Tensor      # int32[N] flat twig-texel index, -1 for LEAF hits/misses
 
 
-def loop_bound(max_steps: int) -> int:
-    """Iterations the reference runs at most: max_steps rounded up to 4."""
-    return 4 * ((int(max_steps) + 3) // 4)
+def loop_bound(max_steps: int, unroll: int = 4) -> int:
+    """Iterations the reference runs at most: max_steps rounded up to a
+    multiple of the loop's unroll."""
+    u = int(unroll)
+    return u * ((int(max_steps) + u - 1) // u)
 
 
-def budget_stride(steps_stride: int) -> int:
+def budget_stride(steps_stride: int, unroll: int = 4) -> int:
     """The budget's stage length: steps_stride rounded down to the loop's
-    unroll of 4, at least 4."""
-    return max(4, (int(steps_stride) // 4) * 4)
+    unroll, at least one unroll."""
+    u = int(unroll)
+    return max(u, (int(steps_stride) // u) * u)
 
 
 def budget_cap(max_steps: int, stride: int) -> int:
@@ -149,6 +153,7 @@ def march_plain(
     step_budget=None,
     steps_stride: int = 16,
     expose_live_t: bool = False,
+    unroll: int = 4,
 ) -> MarchResult:
     """The march in plain PyTorch ops: K1's arithmetic, step by step, over
     the rays still live (rays are independent, so compacting them changes
@@ -172,8 +177,8 @@ def march_plain(
     occ_len = world.twig_occ.shape[0]
     twig_len = world.twig.shape[0]
     budgeted = step_budget is not None
-    stride = budget_stride(steps_stride)
-    cap = budget_cap(max_steps, stride) if budgeted else loop_bound(max_steps)
+    stride = budget_stride(steps_stride, unroll)
+    cap = budget_cap(max_steps, stride) if budgeted else loop_bound(max_steps, unroll)
     charged = torch.zeros(n, dtype=torch.int32, device=dev)
     for it in range(cap):
         if act.numel() == 0:
@@ -244,7 +249,7 @@ def march_plain(
 
 def _march_cuda(world, o, d, max_steps, steps_aov, t_start, live_start,
                 assume_resident, step_budget=None, steps_stride=16,
-                expose_live_t=False) -> MarchResult:
+                expose_live_t=False, unroll=4) -> MarchResult:
     """Launch K1 on PyTorch's current stream; outputs allocated here."""
     n = o.shape[0]
     dev = o.device
@@ -257,8 +262,9 @@ def _march_cuda(world, o, d, max_steps, steps_aov, t_start, live_start,
         steps=torch.empty(n, dtype=torch.int32, device=dev),
         texel=torch.empty(n, dtype=torch.int32, device=dev),
     )
-    stride = budget_stride(steps_stride)
-    cap = budget_cap(max_steps, stride) if step_budget is not None else loop_bound(max_steps)
+    stride = budget_stride(steps_stride, unroll)
+    cap = (budget_cap(max_steps, stride) if step_budget is not None
+           else loop_bound(max_steps, unroll))
     MARCH_KERNEL(
         *world_args(world), ptr(o), ptr(d), ptr(t_start), ptr(live_start),
         ptr(step_budget), n, cap, stride, int(bool(assume_resident)),
@@ -301,34 +307,42 @@ def march(
     origins,
     dirs,
     max_steps: int = MAX_STEPS,
+    unroll: int = 4,
     steps_aov=False,
     t_start=None,
     live_start=None,
+    steps_stride: int = 16,
     assume_resident: bool = False,
     step_budget=None,
-    steps_stride: int = 16,
+    *,
     _expose_live_t: bool = False,
     device="cuda",
 ) -> MarchResult:
     """March N rays through ``world``; returns a :class:`MarchResult`.
 
+    The arguments up to ``step_budget`` come in the reference's order
+    (march_jnp.py:474-485); the rest are keyword-only.
     ``origins``/``dirs`` (f32[N,3], numpy or tensors) are placed on
     ``device``, where ``world`` must live.  On ``cuda`` this launches K1;
-    ``device="cpu"`` runs :func:`march_plain`.  ``t_start``/``live_start``
-    resume a march mid-ray: with ``t_start`` the entry test is skipped and
-    ray i starts at ``max(t_start[i], 0)``; ``live_start`` (0/1) starts
-    rays dead at no cost.  ``assume_resident`` skips the per-step chunk
-    residency test (valid for a static world).  ``step_budget`` (int32[N])
-    charges each ray ``stride`` iterations per stage entered (see the module
-    docstring) and returns the charge in ``.steps``; it excludes
-    ``steps_aov=True``.  ``_expose_live_t`` makes rays still live at the
-    cap report their current t instead of inf."""
+    ``device="cpu"`` runs :func:`march_plain`.  ``unroll`` sets the loop
+    bound and the budget's stage length as the reference's unroll does (see
+    the module docstring).  ``t_start``/``live_start`` resume a march
+    mid-ray: with ``t_start`` the entry test is skipped and ray i starts at
+    ``max(t_start[i], 0)``; ``live_start`` (0/1) starts rays dead at no
+    cost.  ``assume_resident`` skips the per-step chunk residency test
+    (valid for a static world).  ``step_budget`` (int32[N]) charges each ray
+    ``stride`` iterations per stage entered (see the module docstring) and
+    returns the charge in ``.steps``; it excludes ``steps_aov=True``.
+    ``_expose_live_t`` makes rays still live at the cap report their current
+    t instead of inf."""
     dev = resolve_device(device)
     check_world(world, dev)
     o = to_device(origins, dev)
     d = to_device(dirs, dev)
     if o.ndim != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"origins/dirs must be f32[N,3], got {tuple(o.shape)}, {tuple(d.shape)}")
+    if int(unroll) < 1:
+        raise ValueError(f"unroll must be at least 1, got {unroll}")
     if t_start is not None:
         t_start = to_device(t_start, dev)
     if live_start is not None:
@@ -345,17 +359,16 @@ def march(
     steps_aov = bool(steps_aov)
     fn = _march_cuda if o.is_cuda else march_plain
     return fn(world, o, d, max_steps, steps_aov, t_start, live_start, assume_resident,
-              step_budget, steps_stride, _expose_live_t)
+              step_budget, steps_stride, _expose_live_t, unroll)
 
 
 def march_tiled(world, origins, dirs, max_steps: int = MAX_STEPS, tile: int = 8192,
                 unroll: int = 4, steps_aov=False, live_start=None, steps_stride: int = 16,
                 assume_resident: bool = False, device="cuda") -> MarchResult:
-    """:func:`march` over the whole batch in one launch; ``tile`` and
-    ``unroll`` are accepted for callers of the reference and ignored."""
-    return march(world, origins, dirs, max_steps, steps_aov=steps_aov,
-                 live_start=live_start, assume_resident=assume_resident,
-                 steps_stride=steps_stride, device=device)
+    """:func:`march` over the whole batch in one launch; ``tile`` is
+    accepted for callers of the reference and ignored."""
+    return march(world, origins, dirs, max_steps, unroll, steps_aov, live_start=live_start,
+                 steps_stride=steps_stride, assume_resident=assume_resident, device=device)
 
 
 def march_frame(world, origins, dirs, max_steps: int = MAX_STEPS, tile: int = 65536,
@@ -367,6 +380,52 @@ def march_frame(world, origins, dirs, max_steps: int = MAX_STEPS, tile: int = 65
                  assume_resident=assume_resident, device=device)
 
 
+# ---- the light pass: K1 with the light-depth epilogue ---------------------------
+
+def light_depth_plain(o, d, hit, t, depth_row):
+    """The light depth of marched light rays in plain PyTorch ops: row 2 of
+    the light's view-projection (``depth_row``, 4 floats) times
+    [o + d*t, 1] where the ray hit, 1.0 where it missed."""
+    p = o + d * torch.where(hit, t, FAR)[:, None]
+    return torch.where(hit, vp_row(p, depth_row), 1.0)
+
+
+def march_depth_plain(world: TorchWorld, o, d, depth_row, max_steps: int = MAX_STEPS,
+                      assume_resident: bool = False) -> torch.Tensor:
+    """The light-depth march in plain PyTorch ops: :func:`march_plain`, then
+    :func:`light_depth_plain` of its hits."""
+    res = march_plain(world, o, d, max_steps, False, None, None, assume_resident)
+    return light_depth_plain(o, d, res.hit, res.t, depth_row)
+
+
+def _march_depth_cuda(world, o, d, depth_row, max_steps, assume_resident):
+    """Launch K1's light-depth instantiation; the output allocated here."""
+    out = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
+    MARCH_DEPTH_KERNEL(*world_args(world), ptr(o), ptr(d), o.shape[0], loop_bound(max_steps),
+                       int(bool(assume_resident)), c_floats(depth_row), ptr(out))
+    return out
+
+
+def march_depth(world: TorchWorld, origins, dirs, depth_row, max_steps: int = MAX_STEPS,
+                assume_resident: bool = False, device="cuda") -> torch.Tensor:
+    """f32[N] light depth of rays marched from the world entry with the
+    default unroll, as the reference's light pass marches: what ``march``
+    then the resolve of shade/shadow.py give, in one pass.  On ``cuda`` this
+    launches K1 with its light-depth epilogue (no hit record is written);
+    ``device="cpu"`` runs :func:`march_depth_plain`."""
+    dev = resolve_device(device)
+    check_world(world, dev)
+    o = to_device(origins, dev)
+    d = to_device(dirs, dev)
+    if o.ndim != 2 or o.shape[1] != 3 or d.shape != o.shape:
+        raise ValueError(f"origins/dirs must be f32[N,3], got {tuple(o.shape)}, {tuple(d.shape)}")
+    if len(depth_row) != 4:
+        raise ValueError("depth_row must hold the 4 floats of one view-projection row")
+    fn = _march_depth_cuda if o.is_cuda else march_depth_plain
+    return fn(world, o, d, depth_row, max_steps, assume_resident)
+
+
 __all__ = ["MarchResult", "march", "march_plain", "march_tiled", "march_frame",
+           "march_depth", "march_depth_plain", "light_depth_plain", "MARCH_DEPTH_KERNEL",
            "MARCH_KERNEL", "T_CLAMP", "loop_bound", "budget_stride", "budget_cap",
            "world_args", "check_world"]

@@ -20,9 +20,11 @@ import torch
 from ..core.geometry import const, normalize
 
 
-def sample_env(envmap, dirs):
+def sample_env(envmap, dirs, bilinear: bool = True):
     """Sample an equirect map f32[H, W, 3] by direction f32[N, 3] -> [N, 3]:
-    bilinear over 4 taps with wraparound in u (floor modulo) and clamp in v."""
+    bilinear over 4 taps with wraparound in u (floor modulo) and clamp in v,
+    or with ``bilinear=False`` the one texel the direction falls in."""
+    dirs = torch.as_tensor(dirs, dtype=torch.float32)
     e = torch.as_tensor(envmap, dtype=torch.float32, device=dirs.device)
     H, W = e.shape[0], e.shape[1]
     flat = e.reshape(-1, 3)
@@ -35,6 +37,9 @@ def sample_env(envmap, dirs):
         xi = torch.remainder(xi, W)
         yi = yi.clamp(0, H - 1)
         return flat[(yi * W + xi).long()]
+
+    if not bilinear:
+        return tap((u * W).to(torch.int32), (v * H).to(torch.int32))
 
     x = u * W - 0.5
     y = v * H - 0.5

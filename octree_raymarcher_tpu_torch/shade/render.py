@@ -1,15 +1,16 @@
 """The forward render pass: march + shadow + Blinn-Phong shade + depth AOVs.
 
 PyTorch counterpart of octree_raymarcher_tpu/shade/render.py: the march
-(CUDA kernel K1, ops/march.py), the shadow factor (shade/shadow.py: K3 around
-a second K1 launch), and per-ray shading (CUDA kernel K2, csrc/shade.cu)
-into the AOV dict of the reference (rgb, depth, hit, material, steps, point,
-normal).  Per frame the kernels launch in this order:
+(CUDA kernel K1, ops/march.py), the shadow (shade/shadow.py), and per-ray
+shading (CUDA kernel K2, csrc/shade.cu) into the AOV dict of the reference
+(rgb, depth, hit, material, steps, point, normal).  Per frame the kernels
+launch in this order:
 
 * ``shadow="none"``: K1, K2;
 * ``shadow="ray"``: K1, K3 ray_prep, K1 (shadow rays), K2;
-* ``shadow="map"``: K1 (light bundle), K3 shadow_resolve, K1, K3
-  map_project, K2 (the light pass is skipped when ``shadowmap`` is given).
+* ``shadow="map"``: K1 with its light-depth epilogue (the light bundle;
+  skipped when ``shadowmap`` is given), K1, then K2 with the depth map,
+  which projects its hit points into it itself.
 
 On CPU tensors every stage runs its plain PyTorch version.
 """
@@ -22,7 +23,7 @@ import torch
 
 from ..core.constants import EPS
 from ..core.geometry import cube_normal, cube_uv, inverse_depth, length
-from ..kernels import Kernel, ptr
+from ..kernels import Kernel, c_floats, ptr
 from ..ops.march import MarchResult, march
 from ..world.device import TorchWorld, resolve_device, to_device
 from .envmap import sample_env
@@ -31,7 +32,8 @@ from .materials import MaterialTable
 from .shadow import (
     host_vp,
     light_dir,
-    map_project,
+    map_bias,
+    map_project_plain,
     map_shadow,
     ray_prep,
     ray_shadow,
@@ -40,6 +42,8 @@ from .shadow import (
 )
 
 SHADE_KERNEL = Kernel("ort_shade")
+# K2's map-shadowed instantiation (the same C entry, given a depth map)
+SHADE_MAP_KERNEL = Kernel("ort_shade")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +71,13 @@ def _check_shadow(cfg: RenderConfig) -> None:
 
 def shade_hits_plain(res: MarchResult, o, d, eye, lights: LightRig,
                      materials: MaterialTable, cfg: RenderConfig,
-                     shadow_factor=None, atlas=None, envmap=None) -> dict:
-    """Shading in plain PyTorch ops, in the kernel's operation order."""
+                     shadow_factor=None, atlas=None, envmap=None, shadowmap=None) -> dict:
+    """Shading in plain PyTorch ops, in the kernel's operation order.  With
+    ``shadowmap`` (depth, vp) the shadow factor is map_project_plain's, as
+    the map-shadowed kernel computes it."""
+    if shadowmap is not None:
+        shadow_factor = map_project_plain(res, o, d, shadowmap[0], shadowmap[1],
+                                          cfg.shadow_bias)
     t_hit = torch.where(res.hit, res.t, 0.0)
     p = o + d * (t_hit - EPS)[:, None]
 
@@ -109,18 +118,20 @@ def shade_hits_plain(res: MarchResult, o, d, eye, lights: LightRig,
 
 def _shade_cuda(res: MarchResult, o, d, eye, lights: LightRig,
                 materials: MaterialTable, cfg: RenderConfig,
-                shadow_factor=None, atlas=None, envmap=None) -> dict:
+                shadow_factor=None, atlas=None, envmap=None, shadowmap=None) -> dict:
     """Launch K2 on PyTorch's current stream; outputs allocated here."""
     dev = o.device
     return _shade_launch(res, o, d, eye, to_device(materials.to_matrix(), dev),
                          to_device(lights.to_vector(), dev), cfg, shadow_factor, atlas,
-                         envmap)
+                         envmap, shadowmap)
 
 
 def _shade_launch(res: MarchResult, o, d, eye, mats, light_vec, cfg: RenderConfig,
-                  shadow_factor=None, atlas=None, envmap=None) -> dict:
+                  shadow_factor=None, atlas=None, envmap=None, shadowmap=None) -> dict:
     """K2's launch with the material matrix and light vector already on the
-    card (no host copy, so it can be captured in a CUDA graph)."""
+    card (no host copy, so it can be captured in a CUDA graph).  With
+    ``shadowmap`` (depth on the card, vp on the host) the map-shadowed
+    instantiation runs."""
     dev = o.device
     n = o.shape[0]
     f32 = torch.float32
@@ -140,15 +151,25 @@ def _shade_launch(res: MarchResult, o, d, eye, mats, light_vec, cfg: RenderConfi
         raise ValueError(f"atlas must be f32[M, R, R, 3], got {tuple(atlas.shape)}")
     if envmap is not None and (envmap.ndim != 3 or envmap.shape[2] != 3):
         raise ValueError(f"envmap must be f32[H, W, 3], got {tuple(envmap.shape)}")
+    depth_map, map_h, map_w, vp, bias = None, 0, 0, None, 0.0
+    if shadowmap is not None:
+        depth_map, vp = shadowmap[0], c_floats(host_vp(shadowmap[1]).reshape(16))
+        if (depth_map.device != dev or depth_map.dtype != f32 or depth_map.ndim != 2
+                or not depth_map.is_contiguous()):
+            raise ValueError(f"shade: the shadow map depth must be a contiguous f32[H, W] "
+                             f"on {dev}")
+        map_h, map_w = depth_map.shape
+        bias = map_bias(cfg.shadow_bias, map_w)
     rgb = torch.empty((n, 3), dtype=torch.float32, device=dev)
     depth = torch.empty(n, dtype=torch.float32, device=dev)
     point = torch.empty((n, 3), dtype=torch.float32, device=dev)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
     sky = [float(v) for v in cfg.sky]
-    SHADE_KERNEL(
+    kernel = SHADE_KERNEL if shadowmap is None else SHADE_MAP_KERNEL
+    kernel(
         ptr(res.hit), ptr(res.t), ptr(res.material), ptr(res.cell_bmin),
         ptr(res.cell_size), ptr(o), ptr(d), ptr(eye), ptr(shadow_factor),
-        ptr(mats), mats.shape[0], ptr(light_vec),
+        ptr(depth_map), map_h, map_w, vp, bias, ptr(mats), mats.shape[0], ptr(light_vec),
         ptr(atlas), 0 if atlas is None else atlas.shape[0],
         0 if atlas is None else atlas.shape[1],
         ptr(envmap), 0 if envmap is None else envmap.shape[0],
@@ -162,9 +183,12 @@ def _shade_launch(res: MarchResult, o, d, eye, mats, light_vec, cfg: RenderConfi
 
 def shade_hits(res: MarchResult, origins, dirs, eye, lights: LightRig,
                materials: MaterialTable, cfg: RenderConfig, shadow_factor=None,
-               atlas=None, envmap=None) -> dict:
+               atlas=None, envmap=None, shadowmap=None) -> dict:
     """Shade a MarchResult into RGB + AOVs.  On CUDA tensors this launches
-    K2; on CPU tensors it runs :func:`shade_hits_plain`."""
+    K2; on CPU tensors it runs :func:`shade_hits_plain`.  ``shadowmap``
+    (depth f32[H, W], light_vp f32[4,4]) from :func:`render_shadowmap`
+    shadows the hits by the map, with ``cfg.shadow_bias``, inside K2; it
+    excludes ``shadow_factor``."""
     dev = res.t.device
     o = to_device(origins, dev)
     d = to_device(dirs, dev)
@@ -173,8 +197,13 @@ def shade_hits(res: MarchResult, origins, dirs, eye, lights: LightRig,
         atlas = to_device(atlas, dev)
     if envmap is not None:
         envmap = to_device(envmap, dev)
+    if shadowmap is not None:
+        if shadow_factor is not None:
+            raise ValueError("shade_hits takes a shadow_factor or a shadowmap, not both")
+        shadowmap = (to_device(shadowmap[0], dev), host_vp(shadowmap[1]))
     fn = _shade_cuda if o.is_cuda else shade_hits_plain
-    return fn(res, o, d, eye, lights, materials, cfg, shadow_factor, atlas, envmap)
+    return fn(res, o, d, eye, lights, materials, cfg, shadow_factor, atlas, envmap,
+              shadowmap)
 
 
 def _ray_shadow_hits(world: TorchWorld, res: MarchResult, o, d, lights: LightRig,
@@ -219,12 +248,10 @@ def render(
     shadow_factor = None
     if cfg.shadow == "ray":
         shadow_factor = _ray_shadow_hits(world, res, o, d, lights, cfg)
-    elif cfg.shadow == "map":
-        depth_map, vp = shadowmap
-        shadow_factor = map_project(res, o, d, to_device(depth_map, dev), host_vp(vp),
-                                    cfg.shadow_bias)
+    if cfg.shadow != "map":
+        shadowmap = None
     return shade_hits(res, o, d, eye, lights, materials, cfg, shadow_factor=shadow_factor,
-                      atlas=atlas, envmap=envmap)
+                      atlas=atlas, envmap=envmap, shadowmap=shadowmap)
 
 
 def render_frame(
@@ -255,4 +282,5 @@ def render_frame(
 
 
 __all__ = ["RenderConfig", "render", "render_frame", "render_shadowmap", "shadow_bundle",
-           "map_shadow", "ray_shadow", "shade_hits", "shade_hits_plain", "SHADE_KERNEL"]
+           "map_shadow", "ray_shadow", "shade_hits", "shade_hits_plain", "SHADE_KERNEL",
+           "SHADE_MAP_KERNEL"]

@@ -12,6 +12,13 @@ PyTorch version here:
 * :func:`map_project` - the projection of hit points into the light's depth
   map and the biased compare, times the hit mask.
 
+The shadow-map frame runs neither of the last two: :func:`render_shadowmap`
+resolves its light depth in K1's epilogue (ops/march.py ``march_depth``),
+and ``render`` hands the depth map to the shading kernel K2, which projects
+its own hit points.  Both use the arithmetic of ``shadow_resolve`` and
+``map_project`` (csrc/shadow.cuh), which stay public, as does
+:func:`map_shadow` of given points.
+
 The light's view-projection ``vp`` is built on the host in float32 and the
 kernels take it by value; ``vp*[p,1]`` sums its terms in one fixed order,
 ``((p.x*m0 + p.y*m1) + p.z*m2) + m3``, in the kernels and here alike.
@@ -22,10 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.constants import EPS, FAR
-from ..core.geometry import cube_normal
-from ..kernels import Kernel, ptr
-from ..ops.march import MarchResult, march
+from ..core.constants import EPS
+from ..core.geometry import cube_normal, vp_row
+from ..kernels import Kernel, c_floats, ptr
+from ..ops.march import MarchResult, light_depth_plain, march, march_depth
 from ..world.device import TorchWorld, resolve_device, to_device
 from .lights import LightRig
 from .transforms import look_at, ortho
@@ -120,11 +127,6 @@ def _bundle(world: TorchWorld, lights: LightRig, H: int, W: int, margin: float):
     return cached[1:]
 
 
-def _row(p, vp, i):
-    m = [float(v) for v in vp[i]]
-    return ((p[:, 0] * m[0] + p[:, 1] * m[1]) + p[:, 2] * m[2]) + m[3]
-
-
 def _hit_point(res: MarchResult, o, d):
     t_hit = torch.where(res.hit, res.t, 0.0)
     return o + d * (t_hit - EPS)[:, None]
@@ -148,12 +150,10 @@ def _check(n: int, dev, **tensors):
             raise ValueError(f"{name} must be a contiguous {dtype}[{n}, ...] tensor on {dev}")
 
 
-def _c_floats(vp):
-    """vp as a ctypes float[16] (a host pointer argument; the kernel copies
-    the 16 floats into its parameters)."""
-    import ctypes
-
-    return (ctypes.c_float * 16)(*np.asarray(vp, dtype=np.float32).reshape(16).tolist())
+def map_bias(bias_texels: float, W: int) -> float:
+    """The map compare's bias in ndc z: ``bias_texels`` texels of a map W
+    texels wide (a texel spans 1/(2W) along the ray), rounded to float32."""
+    return float(np.float32(bias_texels / (2.0 * W)))
 
 
 # ---- ray_prep -----------------------------------------------------------------
@@ -200,8 +200,7 @@ def ray_prep(res: MarchResult, o, d, ldir, points=None, normals=None):
 
 def shadow_resolve_plain(o, d, hit, t, vp):
     """Along-ray ndc-z of the light bundle (1.0 where it missed), plain."""
-    p = o + d * torch.where(hit, t, FAR)[:, None]
-    return torch.where(hit, _row(p, vp, 2), 1.0)
+    return light_depth_plain(o, d, hit, t, host_vp(vp)[2])
 
 
 def shadow_resolve(o, d, hit, t, vp):
@@ -211,8 +210,8 @@ def shadow_resolve(o, d, hit, t, vp):
     f32 = torch.float32
     _check(o.shape[0], o.device, o=(o, f32), d=(d, f32), hit=(hit, torch.bool), t=(t, f32))
     depth = torch.empty(o.shape[0], dtype=torch.float32, device=o.device)
-    SHADOW_RESOLVE_KERNEL(ptr(o), ptr(d), ptr(hit), ptr(t), _c_floats(vp), o.shape[0],
-                          ptr(depth))
+    SHADOW_RESOLVE_KERNEL(ptr(o), ptr(d), ptr(hit), ptr(t), c_floats(host_vp(vp).reshape(16)),
+                          o.shape[0], ptr(depth))
     return depth
 
 
@@ -223,7 +222,8 @@ def map_shadow_plain(points, shadow_depth, vp, bias_texels: float = 4.0, hit=Non
     the light, compare their ndc z with the depth map's nearest texel plus
     ``bias_texels`` texels of depth, and multiply by ``hit`` when given."""
     H, W = shadow_depth.shape
-    cx, cy, cz, cw = (_row(points, vp, i) for i in range(4))
+    vp = host_vp(vp)
+    cx, cy, cz, cw = (vp_row(points, vp[i]) for i in range(4))
     den = torch.clamp_min(cw.abs(), 1e-12)
     sg = torch.sign(cw)
     u = (cx / den * sg) * 0.5 + 0.5
@@ -234,7 +234,7 @@ def map_shadow_plain(points, shadow_depth, vp, bias_texels: float = 4.0, hit=Non
     xi = torch.clamp(u * float(W), 0.0, W - 1).to(torch.int64)
     yi = torch.clamp((1.0 - v) * float(H), 0.0, H - 1).to(torch.int64)
     pixel_z = shadow_depth.reshape(-1)[yi * W + xi]
-    bias = float(np.float32(bias_texels / (2.0 * W)))
+    bias = map_bias(bias_texels, W)
     inside = (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
     shadowed = inside & (nz > pixel_z + bias)
     if hit is not None:
@@ -258,7 +258,7 @@ def _map_project_cuda(points, o, d, hit, t, shadow_depth, vp, bias_texels):
     _check(H, dev, shadow_depth=(shadow_depth, f32))
     factor = torch.empty(n, dtype=torch.float32, device=dev)
     MAP_PROJECT_KERNEL(ptr(points), ptr(o), ptr(d), ptr(hit), ptr(t), ptr(shadow_depth), H, W,
-                       _c_floats(vp), float(np.float32(bias_texels / (2.0 * W))), n,
+                       c_floats(host_vp(vp).reshape(16)), map_bias(bias_texels, W), n,
                        ptr(factor))
     return factor
 
@@ -298,16 +298,17 @@ def render_shadowmap(world: TorchWorld, lights: LightRig, resolution=(512, 512),
     f32[H,W] on the world's device, light_vp f32[4,4] on the host: the
     kernels take it by value).
 
-    One K1 launch over the whole bundle and one K3 resolve.  ``tile``,
+    One launch of K1 with its light-depth epilogue over the whole bundle
+    (ops/march.py ``march_depth``; on the CPU its plain version,
+    :func:`shadow_resolve_plain` of ``march_plain``).  ``tile``,
     ``compact`` and ``compact_tile`` are accepted for callers of the
     reference and ignored: they chose among TPU schedules of the same
     depth map, and ``compact=True`` does not return the reference's
     executed-lane count."""
     H, W = resolution
     origins, dirs, vp = _bundle(world, lights, H, W, margin)
-    res = march(world, origins, dirs, max_steps, assume_resident=assume_resident,
-                device=world.device)
-    depth = shadow_resolve(origins, dirs, res.hit, res.t, vp)
+    depth = march_depth(world, origins, dirs, vp[2], max_steps,
+                        assume_resident=assume_resident, device=world.device)
     return depth.reshape(H, W), torch.from_numpy(vp)
 
 
@@ -327,4 +328,5 @@ def ray_shadow(world: TorchWorld, res: MarchResult, points, normals, lights: Lig
 __all__ = ["shadow_bundle", "render_shadowmap", "map_shadow", "ray_shadow",
            "ray_prep", "ray_prep_plain", "shadow_resolve", "shadow_resolve_plain",
            "map_project", "map_project_plain", "map_shadow_plain", "light_dir", "light_vp", "host_vp",
+           "map_bias",
            "RAY_PREP_KERNEL", "SHADOW_RESOLVE_KERNEL", "MAP_PROJECT_KERNEL"]

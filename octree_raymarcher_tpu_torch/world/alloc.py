@@ -30,6 +30,7 @@ included.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -285,6 +286,19 @@ def patch(world: TorchWorld, staged: torch.Tensor, n_desc: int) -> None:
                  ptr(staged), n_desc, 8 * n_desc)
 
 
+def dev_alias(fn):
+    """Let ``fn``, whose device world is the reference's ``dev``, take it
+    as ``world=`` too; its signature is otherwise the reference's."""
+    @functools.wraps(fn)
+    def call(*args, **kw):
+        if "world" in kw:
+            if "dev" in kw:
+                raise TypeError(f"{fn.__name__}() got both dev and its alias world")
+            kw["dev"] = kw.pop("world")
+        return fn(*args, **kw)
+    return call
+
+
 def _grow_pool(t: torch.Tensor, n: int) -> torch.Tensor:
     """A zeroed pool of ``n`` words holding ``t`` at its head (rare: the
     arena doubled)."""
@@ -456,14 +470,17 @@ class WorldAllocator:
         self.last_batch = batch
         return world
 
-    def modify(self, world: TorchWorld, key: int, chunk: Chunk, dtree: Dirty,
+    @dev_alias
+    def modify(self, dev: TorchWorld, key: int, chunk: Chunk, dtree: Dirty,
                dtwig: Dirty) -> TorchWorld:
-        """Apply one edited chunk's dirty ranges (a batch of one)."""
-        return self.modify_batch(world, [(key, chunk, dtree, dtwig)])
+        """Apply one edited chunk's dirty ranges (a batch of one) to the
+        device world ``dev`` (``world=`` is an alias)."""
+        return self.modify_batch(dev, [(key, chunk, dtree, dtwig)])
 
     def occupancy(self) -> dict:
         return {"tree": self.tree.occupancy(), "twig": self.twig.occupancy()}
 
 
 __all__ = ["FreeList", "PoolAllocator", "WorldAllocator", "Block", "PatchBatch",
-           "PATCH_KERNEL", "patch", "patch_plain", "stage", "occupancy_words", "check_batch"]
+           "PATCH_KERNEL", "patch", "patch_plain", "stage", "occupancy_words", "check_batch",
+           "dev_alias"]

@@ -28,7 +28,7 @@ from ..core.constants import TWIG_WORDS
 from ..worldgen.grow import grow
 from ..worldgen.pyramid import BoundsPyramid
 from . import edit as edit_ops
-from .alloc import WorldAllocator
+from .alloc import WorldAllocator, dev_alias
 from .device import TorchWorld, pack_chunks
 from .device import to_device as upload
 
@@ -180,11 +180,13 @@ class World:
     def replace(self, bmin, bmax, material: int):
         return self._edit(edit_ops.replace, bmin, bmax, material)
 
-    def apply(self, wa: WorldAllocator, world: TorchWorld, edits) -> TorchWorld:
-        """Patch ``world`` with the dirty ranges of an edit batch
-        [(chunk_index, Dirty tree, Dirty twig)]: one staging copy and one
-        K7 launch for the whole batch (see world/alloc.py)."""
-        return wa.modify_batch(world, [(i, self.chunks[i], dt, dw) for i, dt, dw in edits])
+    @dev_alias
+    def apply(self, wa: WorldAllocator, dev: TorchWorld, edits) -> TorchWorld:
+        """Patch the device world ``dev`` (``world=`` is an alias) with the
+        dirty ranges of an edit batch [(chunk_index, Dirty tree, Dirty
+        twig)]: one staging copy and one K7 launch for the whole batch (see
+        world/alloc.py)."""
+        return wa.modify_batch(dev, [(i, self.chunks[i], dt, dw) for i, dt, dw in edits])
 
     # -- streaming (reference World::shift, src/World.cpp:334-378) ---------
     def shift(self, axis: int, sign: int) -> list:
@@ -223,11 +225,12 @@ class World:
         }
         return touched
 
-    def apply_shift(self, wa: WorldAllocator, world: TorchWorld, touched) -> TorchWorld:
+    @dev_alias
+    def apply_shift(self, wa: WorldAllocator, dev: TorchWorld, touched) -> TorchWorld:
         """Re-upload regenerated chunks (one K7 batch) and slide the device
-        coordinate min in place."""
-        world = wa.modify_batch(world, [(i, self.chunks[i], Dirty(realloc=True),
-                                         Dirty(realloc=True)) for i in touched])
+        coordinate min of ``dev`` (``world=`` is an alias) in place."""
+        world = wa.modify_batch(dev, [(i, self.chunks[i], Dirty(realloc=True),
+                                       Dirty(realloc=True)) for i in touched])
         world.chunkcoordmin.copy_(upload(self.chunkcoordmin, world.device))
         return world
 

@@ -35,7 +35,14 @@ from octree_raymarcher_tpu_torch.diff.segments import (
     sample_segments_plain,
     segments_plan,
 )
-from octree_raymarcher_tpu_torch.ops.march import MARCH_KERNEL, march, march_plain
+from octree_raymarcher_tpu_torch.ops.march import (
+    MARCH_DEPTH_KERNEL,
+    MARCH_KERNEL,
+    march,
+    march_depth,
+    march_depth_plain,
+    march_plain,
+)
 from octree_raymarcher_tpu_torch.shade import (
     LightRig,
     MaterialTable,
@@ -47,7 +54,7 @@ from octree_raymarcher_tpu_torch.shade import (
     shade_hits_plain,
 )
 from octree_raymarcher_tpu_torch.shade import shadow as S
-from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL
+from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL, SHADE_MAP_KERNEL
 from octree_raymarcher_tpu_torch.world.alloc import (
     CHUNK_BMIN,
     CHUNK_TREE,
@@ -173,6 +180,73 @@ def test_shadow_kernels_match_plain(gpu_scene):
     host = S.map_shadow(pts.cpu().numpy(), depth.cpu().numpy(), vp)
     assert S.MAP_PROJECT_KERNEL.launches == before + 1 and host.is_cuda
     torch.testing.assert_close(host, S.map_shadow_plain(pts, depth, vp_np), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["plain", "textured_env"])
+def test_map_shade_kernel_matches_split(gpu_scene, textured):
+    """K2 given the depth map (it projects its own hit points) equals K2
+    fed K3 map_project's factor, bit for bit, and its plain version."""
+    world, o, d, eye, _ = gpu_scene
+    res = march(world, o, d, max_steps=512, device="cuda")
+    lights, mats, cfg = LightRig.default(), MaterialTable.default(), RenderConfig(shadow="map")
+    kw = {}
+    if textured:
+        kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)).cuda(),
+                  envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
+    shadowed = 0.0
+    for resolution in ((512, 512), (256, 200)):
+        smap = S.render_shadowmap(world, lights, resolution=resolution)
+        before = (SHADE_KERNEL.launches, SHADE_MAP_KERNEL.launches)
+        fused = shade_hits(res, o, d, eye, lights, mats, cfg, shadowmap=smap, **kw)
+        assert (SHADE_KERNEL.launches, SHADE_MAP_KERNEL.launches) == (before[0], before[1] + 1)
+        factor = S.map_project(res, o, d, smap[0], S.host_vp(smap[1]), cfg.shadow_bias)
+        split = shade_hits(res, o, d, eye, lights, mats, cfg, shadow_factor=factor, **kw)
+        for k in ("rgb", "depth", "point", "normal"):
+            torch.testing.assert_close(fused[k], split[k], rtol=0, atol=0, msg=k)
+        ref = shade_hits_plain(res, o, d, eye, lights, mats, cfg, shadowmap=smap, **kw)
+        for k in ("rgb", "depth", "point", "normal"):
+            torch.testing.assert_close(fused[k], ref[k], rtol=1e-4, atol=1e-5, msg=k)
+        shadowed += float(factor.sum())
+    assert shadowed > 0
+
+
+def _light_depth_exact(world, o, d, vp, resident):
+    """K1's light-depth instantiation against K3 shadow_resolve of K1's hit
+    record and against the plain composition, bit for bit."""
+    before = (MARCH_KERNEL.launches, MARCH_DEPTH_KERNEL.launches)
+    got = march_depth(world, o, d, vp[2], 512, assume_resident=resident, device="cuda")
+    assert (MARCH_KERNEL.launches, MARCH_DEPTH_KERNEL.launches) == (before[0], before[1] + 1)
+    res = march(world, o, d, 512, assume_resident=resident, device="cuda")
+    torch.testing.assert_close(got, S.shadow_resolve(o, d, res.hit, res.t, vp), rtol=0, atol=0)
+    torch.testing.assert_close(got, march_depth_plain(world, o, d, vp[2], 512,
+                                                      assume_resident=resident),
+                               rtol=0, atol=0)
+    return res
+
+
+@pytest.mark.parametrize("name", ["gpu_scene", *SCENES])
+def test_light_depth_march_matches_resolve(gpu_scene, name):
+    """On the light bundle of the scene's world and on the scene's own rays
+    (with a light view-projection), with and without the residency test."""
+    if name == "gpu_scene":
+        world, o, d = gpu_scene[:3]
+    else:
+        world, o, d = _scene_on_card(name)
+    lights = LightRig.default()
+    origins, dirs, vp = S._bundle(world, lights, 64, 48, 1.1)
+    for resident in (False, True):
+        lres = _light_depth_exact(world, origins, dirs, vp, resident)
+        _light_depth_exact(world, o, d, vp, resident)
+    assert bool(lres.hit.any())
+    depth, _ = S.render_shadowmap(world, lights, resolution=(64, 48))
+    torch.testing.assert_close(depth.reshape(-1),
+                               S.shadow_resolve(origins, dirs, *_hit_t(world, origins, dirs), vp),
+                               rtol=0, atol=0)
+
+
+def _hit_t(world, o, d):
+    res = march(world, o, d, 512, device="cuda")
+    return res.hit, res.t
 
 
 @pytest.mark.parametrize("budget", [None, 40])
