@@ -59,6 +59,23 @@ order, and then:
      for word; the final frame must match one rendered from a fresh pack of
      the same chunks; then K7, its plain version and the slice copies are
      timed on each batch, and the saved world is loaded back.
+ 12. the ray-sharded paths of octree_raymarcher_tpu_torch/parallel/ on a
+     one-rank NCCL process group (cuda:0; no exchange between cards is
+     exercised on one card): render_frame_sharded (in one group, and in the
+     reference's 65,536-ray tiles) and march_sharded must equal phase 6's
+     render_frame and march bit for bit, with K1 and K2 launched once a
+     group; the blocking, overlapped and ZeRO train steps (K=32, 4 gradient
+     tiles) run 3 steps each from init_params_from_world toward the
+     shadowless frame, with falling losses, 4 launches of K4, K5 and K6 a
+     step and nothing else, the overlapped step's all-reduces asynchronous,
+     and step 1's gradients and params held against the blocking step's
+     within K6's tolerance; then entry(), dryrun_multichip(1) and the march
+     guards (march_checked equal to march; a NaN direction raises before
+     any launch).  The frames, the marches and one step of each mode are
+     timed by CUDA events.
+
+Phases 6 and 8 also print the bound of the textured K2 (K2's bytes and the
+distinct atlas texels and sky-map taps the frame reads).
 
 Phase 1 prints the card's name and power limit (nvidia-smi) and ptxas's
 registers, shared memory and spills for every instantiation of K1, K2 and
@@ -72,6 +89,7 @@ line is {"ok": true, "device": {...}}.  With no CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -232,6 +250,36 @@ def ptxas_report(log: str) -> dict:
         elif "Used" in ln and "registers" in ln and name:
             out[name] = ln.split(":", 1)[1].strip() + "; " + frame
     return out
+
+
+def texture_bytes(res, O, D, atlas, env) -> int:
+    """Bytes of atlas and sky map that textured shading must read for these
+    rays, each distinct texel once (12 bytes): the atlas texel each hit
+    samples (nearest, by face UV, as shade_hits_plain) and the four sky-map
+    taps of each miss (bilinear, as sample_env)."""
+    import math
+
+    from octree_raymarcher_tpu_torch.core.constants import EPS
+    from octree_raymarcher_tpu_torch.core.geometry import const, cube_uv, normalize
+
+    hit = res.hit
+    p = O[hit] + D[hit] * (res.t[hit] - EPS)[:, None]
+    cmin = res.cell_bmin[hit]
+    uv = cube_uv(p, cmin, cmin + res.cell_size[hit][:, None])
+    r = atlas.shape[1]
+    ui = torch.clamp(uv[:, 0] * r, 0, r - 1).to(torch.int64)
+    vi = torch.clamp(uv[:, 1] * r, 0, r - 1).to(torch.int64)
+    mi = res.material[hit].clamp(0, atlas.shape[0] - 1).to(torch.int64)
+    texels = torch.unique((mi * r + vi) * r + ui).numel()
+    h, w = env.shape[0], env.shape[1]
+    nd = normalize(D[~hit])
+    u = torch.atan2(nd[:, 2], nd[:, 0]) / const(nd, 2.0 * math.pi) + 0.5
+    v = torch.acos(torch.clamp(nd[:, 1], -1.0, 1.0)) / const(nd, math.pi)
+    x0 = torch.floor(u * w - 0.5).to(torch.int64)
+    y0 = torch.floor(v * h - 0.5).to(torch.int64)
+    taps = torch.cat([torch.remainder(x0 + dx, w) + (y0 + dy).clamp(0, h - 1) * w
+                      for dx in (0, 1) for dy in (0, 1)])
+    return 12 * (texels + torch.unique(taps).numel())
 
 
 def march_mismatches(a, b) -> dict:
@@ -495,6 +543,263 @@ def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080)
 
 
 
+class RecordingAdam(torch.optim.Adam):
+    """Adam that keeps a copy of the gradients its last step was given."""
+
+    def step(self, closure=None):
+        self.seen = [p.grad.detach().clone() for g in self.param_groups for p in g["params"]]
+        return super().step(closure)
+
+
+def count_all_reduce(fn):
+    """(fn(), {"async": a, "blocking": b}): fn run with
+    torch.distributed.all_reduce counting its calls by ``async_op``."""
+    import torch.distributed as dist
+
+    calls = {"async": 0, "blocking": 0}
+    inner = dist.all_reduce
+
+    def counted(tensor, *args, async_op=False, **kwargs):
+        calls["async" if async_op else "blocking"] += 1
+        return inner(tensor, *args, async_op=async_op, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        return fn(), calls
+    finally:
+        dist.all_reduce = inner
+
+
+def device_breakdown(fn, top: int = 6):
+    """(device ms, [(kernel, device ms), ...]) of one call of fn traced by
+    torch.profiler: the sum of the kernels' and copies' device time (user
+    annotations, which span kernels, left out), and the ``top`` of them by
+    device time; (None, []) when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        # device events only; a user annotation spans kernels listed apart
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > 0:
+            rows.append((e.key[:60], round(us / 1e3, 4)))
+    rows.sort(key=lambda r: -r[1])
+    if not rows:
+        return None, []
+    return sum(ms for _, ms in rows), rows[:top]
+
+
+def phase_sharded(world, O, D, eye, cfg, frame_rgb, dev, zero_counts, read_counts, smi: str,
+                  K: int = 32, grad_tiles: int = 4, steps: int = 3, lr: float = 0.05) -> None:
+    """Phase 12: the ray-sharded paths of parallel/ on a one-rank process
+    group (NCCL on the card) over the bench scene and camera: the sharded
+    frame and march against render_frame and march bit for bit, the
+    blocking, overlapped and ZeRO train steps against each other, entry(),
+    dryrun_multichip(1) and the march guards; each timed by CUDA events."""
+    import torch.distributed as dist
+
+    from octree_raymarcher_tpu_torch import entry
+    from octree_raymarcher_tpu_torch.diff import init_params_from_world
+    from octree_raymarcher_tpu_torch.ops.guards import GuardError, march_checked
+    from octree_raymarcher_tpu_torch.ops.march import march
+    from octree_raymarcher_tpu_torch.parallel import (
+        init_distributed,
+        local_address,
+        make_mesh,
+        make_sharded_train_step,
+        make_zero_train_step,
+        march_sharded,
+        render_frame_sharded,
+    )
+    from octree_raymarcher_tpu_torch.shade import render_frame
+
+    init_distributed(local_address(), 1, 0, device=dev)
+    try:
+        mesh = make_mesh(dev)
+        nccl = "none"
+        if dev.type == "cuda":
+            v = torch.cuda.nccl.version()
+            nccl = ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
+        print(f"phase 12 process group: {dist.get_backend()}, {mesh.size} rank on "
+              f"{mesh.device}, NCCL {nccl}; card: {smi}", flush=True)
+        n = O.shape[0]
+
+        # the sharded frame: one group, and the reference's default tile
+        tiles = {"one group": n, "tile 65536": 65536}
+        for name, tile in tiles.items():
+            zero_counts()
+            rgb = render_frame_sharded(mesh, world, O, D, eye, tile=tile, cfg=cfg)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            groups = -(-n // tile)
+            want = {k: groups if k in ("march", "shade") else 0 for k in counts}
+            if counts != want:
+                fail(f"render_frame_sharded ({name}) launched {counts}, want {groups} K1 "
+                     f"and K2")
+            if not torch.equal(rgb, frame_rgb):
+                fail(f"render_frame_sharded ({name}) differs from render_frame on "
+                     f"{int((rgb != frame_rgb).any(dim=1).sum())} rays")
+        zero_counts()
+        hit, t, mat = march_sharded(mesh, world, O, D, 512)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != {k: int(k == "march") for k in counts}:
+            fail(f"march_sharded launched {counts}, want one K1")
+        ref = march(world, O, D, 512, device=dev)
+        torch.cuda.synchronize()
+        if not (torch.equal(hit, ref.hit) and torch.equal(mat, ref.material)
+                and torch.equal(t.view(torch.int32), ref.t.view(torch.int32))):
+            fail("march_sharded differs from march")
+        print(f"phase 12 sharded frame (one group, and tile 65536: {-(-n // 65536)} groups) "
+              f"equal to render_frame's rgb on all {n} rays, march_sharded to march's "
+              f"(hit, t bit for bit, material); launches a call: K1 and K2 once a group",
+              flush=True)
+        frame_ms = {
+            "render_frame": cuda_ms(lambda: render_frame(world, O, D, eye, cfg=cfg, device=dev),
+                                    TIMED_ITERS),
+            **{f"render_frame_sharded, {name}": cuda_ms(
+                lambda tile=tile: render_frame_sharded(mesh, world, O, D, eye, tile=tile,
+                                                       cfg=cfg), TIMED_ITERS)
+               for name, tile in tiles.items()},
+            "march": cuda_ms(lambda: march(world, O, D, 512, device=dev), TIMED_ITERS),
+            "march_sharded": cuda_ms(lambda: march_sharded(mesh, world, O, D, 512),
+                                     TIMED_ITERS),
+        }
+        print(f"phase 12 ms a call (CUDA events, mean of {TIMED_ITERS}; {smi}): {frame_ms}",
+              flush=True)
+        for name, tile in tiles.items():
+            busy, top = device_breakdown(lambda tile=tile: render_frame_sharded(
+                mesh, world, O, D, eye, tile=tile, cfg=cfg))
+            ms = frame_ms[f"render_frame_sharded, {name}"]
+            idle = "not measured" if busy is None else f"{1 - busy / ms:.3f}"
+            print(f"phase 12 sharded frame, {name}: device time by torch.profiler "
+                  f"{'not measured' if busy is None else f'{busy:.4f} ms'} (idle share {idle} "
+                  f"of {ms:.4f} ms), most: {top}", flush=True)
+
+        # the train steps, from init_params_from_world toward the shadowless frame
+        params0 = init_params_from_world(world)
+
+        def build(name, opt):
+            """(step, a fresh optimizer state) of one mode."""
+            if name == "zero":
+                init, zstep = make_zero_train_step(mesh, world, opt, K, grad_tiles)
+                return zstep, init(params0)
+            return make_sharded_train_step(mesh, world, opt, K, name == "overlap",
+                                           grad_tiles), None
+
+        runs, step_ms = {}, {}
+        for name in ("blocking", "overlap", "zero"):
+            step, state0 = build(name, functools.partial(RecordingAdam, lr=lr))
+
+            def run():
+                params, state, out = params0, state0, []
+                for i in range(steps):
+                    params, state, loss = step(params, state, world, O, D, frame_rgb)
+                    if i == 0:
+                        first = (params, state.seen)
+                    out.append(float(loss))
+                return out, first
+
+            zero_counts()
+            (losses, first), calls = count_all_reduce(run)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            per = {"segments", "composite_fwd", "composite_bwd"}
+            want = {k: steps * grad_tiles if k in per else 0 for k in counts}
+            if counts != want:
+                fail(f"the {name} step launched {counts} in {steps} steps, want {grad_tiles} "
+                     f"K4, K5 and K6 a step")
+            want_calls = {"blocking": {"async": 0, "blocking": 3 * steps},
+                          "overlap": {"async": 2 * grad_tiles * steps, "blocking": steps},
+                          "zero": {"async": 0, "blocking": steps}}[name]
+            if calls != want_calls:
+                fail(f"the {name} step made all_reduce calls {calls}, want {want_calls}")
+            if not (np.isfinite(losses).all() and all(b < a for a, b in
+                                                        zip(losses, losses[1:]))):
+                fail(f"the {name} step's losses are not finite and falling: {losses}")
+            runs[name] = (losses, first)
+            # timed with plain Adam, from a state one step in
+            step, state = build(name, functools.partial(torch.optim.Adam, lr=lr))
+            _, state, _ = step(params0, state, world, O, D, frame_rgb)
+            step_ms[name] = cuda_ms(lambda: step(params0, state, world, O, D, frame_rgb), 5)
+            busy, top = device_breakdown(lambda: step(params0, state, world, O, D, frame_rgb))
+            idle = "not measured" if busy is None else f"{1 - busy / step_ms[name]:.3f}"
+            print(f"phase 12 {name} step (K={K}, grad_tiles={grad_tiles}, lr {lr}): losses "
+                  f"{losses}, launches {({k: v for k, v in counts.items() if v})}, all_reduce "
+                  f"calls {calls}; {step_ms[name]:.4f} ms a step (CUDA events, mean of 5), one "
+                  f"step's device time by torch.profiler "
+                  f"{'not measured' if busy is None else f'{busy:.4f} ms'} (idle share {idle}), "
+                  f"most: {top}", flush=True)
+        # Step 1 of the three modes: the gradients Adam was given within K6's
+        # tolerance of the blocking step's (|g - gb| <= 1e-3|gb| + 1e-5 max|gb|,
+        # as phase 10 holds K6), and the params within that tolerance carried
+        # through Adam's first update lr*g/(|g| + eps): |p - pb| <=
+        # lr*(1e-3 + 1e-5 max|gb| / (|gb| + eps)).
+        (pb, gb), lb = runs["blocking"][1], runs["blocking"][0][0]
+        agree = {}
+        for name in ("overlap", "zero"):
+            (p, g), loss = runs[name][1], runs[name][0][0]
+            if abs(loss - lb) > 1e-5 * abs(lb):
+                fail(f"the {name} step's first loss {loss} differs from the blocking {lb}")
+            errs = []
+            for a, b, pa, pbl in zip(g, gb, (p.density_raw, p.albedo_raw),
+                                     (pb.density_raw, pb.albedo_raw)):
+                scale = float(b.abs().max())
+                if bool(((a - b).abs() > 1e-3 * b.abs() + 1e-5 * scale).any()):
+                    fail(f"the {name} step's gradients differ from the blocking step's "
+                         f"beyond K6's tolerance: max abs err {max_abs(a, b)}")
+                lim = lr * (1e-3 + 1e-5 * scale / (b.abs() + 1e-8))
+                if bool(((pa - pbl).abs() > lim).any()):
+                    fail(f"the {name} step's params differ from the blocking step's: max abs "
+                         f"err {max_abs(pa, pbl)}")
+                errs.append((max_abs(a, b), max_abs(pa, pbl)))
+            agree[name] = errs
+        print(f"phase 12 step 1 against the blocking step (gradients, params; density, "
+              f"albedo): {agree}; ms a step (CUDA events, mean of 5; {smi}): {step_ms}",
+              flush=True)
+
+        # the entry twin, the dryrun on this one-rank group, the guards
+        fn, args = entry.entry(device=dev)
+        rgb = fn(*args)
+        if tuple(rgb.shape) != (64 * 64, 3) or not bool(torch.isfinite(rgb).all()):
+            fail("entry()'s frame is not finite f32[4096, 3]")
+        dry = entry.dryrun_multichip(1, device=dev)
+        checked = march_checked(world, O, D, max_steps=512, device=dev)
+        torch.cuda.synchronize()
+        for k in ("hit", "material", "texel", "cell_size", "steps"):
+            if not torch.equal(getattr(checked, k), getattr(ref, k)):
+                fail(f"march_checked's {k} differs from march's")
+        if not torch.equal(checked.t.view(torch.int32), ref.t.view(torch.int32)):
+            fail("march_checked's t differs from march's")
+        bad = D.clone()
+        bad[7, 1] = float("nan")
+        zero_counts()
+        try:
+            march_checked(world, O, bad, max_steps=512, device=dev)
+        except GuardError as e:
+            if str(e) != "march: non-finite ray direction":
+                fail(f"march_checked raised {e!r} on a NaN direction")
+        else:
+            fail("march_checked did not raise on a NaN direction")
+        if read_counts()["march"]:
+            fail("march_checked launched K1 before its input checks")
+        print(f"phase 12 entry(): {tuple(rgb.shape)} finite; dryrun_multichip(1): losses "
+              f"{dry['losses']}; march_checked equal to march on all {n} rays, and raises "
+              f"GuardError('march: non-finite ray direction') before any launch", flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -698,7 +1003,8 @@ def main() -> int:
     k1b_ms = cuda_ms(lambda: march(world, O, D, step_budget=budget, steps_stride=16, **fk),
                      TIMED_ITERS)
     rb = march(world, O, D, step_budget=budget, steps_stride=16, **fk)
-    rbp = march_plain(world, O, D, 512, False, None, None, True, budget, 16, False)
+    p1b_ms, rbp = cuda_ms_once(
+        lambda: march_plain(world, O, D, 512, False, None, None, True, budget, 16, False))
     torch.cuda.synchronize()
     bmism = {k: int((~(getattr(rb, k) == getattr(rbp, k)).reshape(n, -1).all(dim=1)).sum())
              for k in ("hit", "t", "material", "texel", "cell_bmin", "cell_size", "steps")}
@@ -718,10 +1024,19 @@ def main() -> int:
                                                           cfg, atlas=atlas, envmap=env),
                             (rf, O, D), TIMED_ITERS)
     print(f"phase 6 kernels alone: K1 {k1_ms:.4f} ms (plain {p1_ms:.2f} ms), K1 with "
-          f"step_budget=512, steps_stride=16 {k1b_ms:.4f} ms (exact vs plain: mismatching rays "
-          f"{bmism}), K2 {k2_ms:.4f} ms (plain {p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms; "
+          f"step_budget=512, steps_stride=16 {k1b_ms:.4f} ms (plain {p1b_ms:.2f} ms; exact vs "
+          f"plain: mismatching rays {bmism}), K2 {k2_ms:.4f} ms (plain {p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms; "
           f"K2 device time per launch in a CUDA graph (inputs from memory): {k2g_ms:.4f} ms, "
           f"textured {k2tg_ms:.4f} ms", flush=True)
+    # the textured K2's bound: K2's bytes (per ray 49 in, 40 out; the
+    # material and light tables) and the distinct atlas texels and sky-map
+    # taps the frame reads; its operations counted as K2's
+    k2_bytes = n * (49 + 40) + mats.to_matrix().nbytes + 50 * 4
+    tex_bytes = texture_bytes(rf, O, D, atlas, env)
+    b2t = bound_ms(k2_bytes + tex_bytes, SHADE_OPS_PER_RAY * n)
+    print(f"phase 6 K2 textured bound {b2t[0]:.5f} ms by {b2t[1]} ({k2_bytes} bytes of K2 + "
+          f"{tex_bytes} of atlas texels and sky-map taps); device time {k2tg_ms:.4f} ms, "
+          f"{b2t[0] / k2tg_ms:.4f} of its bound", flush=True)
 
     # K1 under other ray orders: warps of 32 consecutive rays in each order.
     orders = {"scanline": np.arange(n),
@@ -765,7 +1080,8 @@ def main() -> int:
         fail(f"K3 ray_prep disagrees with ray_prep_plain: max abs err {prep_err}")
     start, sdirs, live = prep_k
     sk = march(world, start, sdirs, 512, steps_aov=True, live_start=live, device=dev)
-    sp = march_plain(world, start, sdirs, 512, True, None, live, False)
+    psr_ms, sp = cuda_ms_once(lambda: march_plain(world, start, sdirs, 512, True, None, live,
+                                                  False))
     torch.cuda.synchronize()
     smism = march_mismatches(sk, sp)
     if max(smism.values()) > 0:
@@ -951,6 +1267,13 @@ def main() -> int:
     }
     print(f"phase 8 device ms per launch in a CUDA graph, inputs from memory: {dev_ms} (K2 "
           f"without the map: {k2g_ms:.4f}, textured {k2tg_ms:.4f})", flush=True)
+    # the textured map-shadowed K2's bound: the map-shadowed K2's bytes and
+    # operations (below) and the texture bytes of phase 6 (the same hits)
+    b_smt = bound_ms(k2_bytes + depth_map.numel() * 4 + tex_bytes,
+                     SHADE_OPS_PER_RAY * n + (PROJECT_OPS - 7) * int(rk.hit.sum()))
+    print(f"phase 8 map-shadowed K2 textured bound {b_smt[0]:.5f} ms by {b_smt[1]}; device "
+          f"time {dev_ms['shade_map textured']:.4f} ms, "
+          f"{b_smt[0] / dev_ms['shade_map textured']:.4f} of its bound", flush=True)
 
     pools_k1 = (packed.tree.nbytes + packed.twig_occ.nbytes + packed.chunk_bmin.nbytes
                 + 2 * packed.chunk_tree.nbytes)
@@ -965,7 +1288,8 @@ def main() -> int:
           f"(plain {rp_plain_ms:.3f}), shadow_resolve {rs_ms:.4f} ms (plain {rs_plain_ms:.3f}), "
           f"map_project {mp_ms:.4f} ms (plain {mp_plain_ms:.3f}), light-depth K1 {md_ms:.4f} ms "
           f"(plain {md_plain_ms:.3f}), map-shadowed K2 {sm_ms:.4f} ms (plain "
-          f"{sm_plain_ms:.3f}); K1 on the shadow rays {sray_ms:.4f} ms "
+          f"{sm_plain_ms:.3f}); K1 on the shadow rays {sray_ms:.4f} ms (plain {psr_ms:.2f} ms, "
+          f"with the steps AOV) "
           f"(bound {b_sray[0]:.4f} ms by {b_sray[1]}, {sray_steps} steps, SIMT efficiency "
           f"{simt_efficiency(sk.steps):.4f}), K1 on the 512x512 light bundle {light_ms:.4f} ms "
           f"(bound {b_light[0]:.4f} ms by {b_light[1]}, {light_steps} steps, SIMT efficiency "
@@ -1199,11 +1523,13 @@ def main() -> int:
     # ---- 11. the edited-world session ----------------------------------------------
     k7 = phase_session(w, dev, atlas, env, zero_counts, read_counts)
 
+    # ---- 12. the ray-sharded paths on a one-rank NCCL group ----------------------------
+    phase_sharded(world, O, D, eye, cfg, out["rgb"], dev, zero_counts, read_counts, smi)
+
     # ---- result ---------------------------------------------------------------
     ray_io = 24 + 33                     # o, d in; hit t material cell size steps texel out
     k1_bytes = (n * ray_io + packed.tree.nbytes + packed.twig_occ.nbytes
                 + packed.chunk_bmin.nbytes + 2 * packed.chunk_tree.nbytes + 4 * twig_hits)
-    k2_bytes = n * (49 + 40) + mats.to_matrix().nbytes + 50 * 4
     b1, by1 = bound_ms(k1_bytes, MARCH_OPS_PER_STEP * steps_sum)
     b2, by2 = bound_ms(k2_bytes, SHADE_OPS_PER_RAY * n)
     b_rp = bound_ms(n * (45 + 28), RAY_PREP_OPS * n)

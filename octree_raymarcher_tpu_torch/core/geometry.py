@@ -2,7 +2,7 @@
 
 PyTorch counterpart of octree_raymarcher_tpu/core/geometry.py
 (``is_inside``, ``inv_dir``, ``escape_distance``, ``enter_distance``,
-``cube_normal``, ``cube_uv``, ``inverse_depth``).  Sums over the
+``cube_normal``, ``cube_uv``, ``inverse_depth``, ``depth_to_distance``).  Sums over the
 three components are written out left to right, and divisions by constants
 divide by a tensor, so that these plain versions and the shading kernel
 (csrc/shade.cu) round the same way on the card.
@@ -107,6 +107,16 @@ def inverse_depth(dist):
     return (1.0 / torch.clamp_min(dist, 1e-6) - inv_near) / const(dist, inv_far - inv_near)
 
 
+def depth_to_distance(depth):
+    """Exact inverse of :func:`inverse_depth`: a stored depth code back to
+    world-space distance, with the reference's clamp of the inverse at
+    1/FAR."""
+    inv_near = 1.0 / NEAR
+    inv_far = 1.0 / FAR
+    inv = depth * const(depth, inv_far - inv_near) + const(depth, inv_near)
+    return 1.0 / torch.clamp_min(inv, 1.0 / FAR)
+
+
 def vp_row(p, m):
     """One row ``m`` (4 floats) of a view-projection times [p, 1] for
     points p f32[N,3], summed in the CUDA kernels' fixed order
@@ -116,4 +126,5 @@ def vp_row(p, m):
 
 
 __all__ = ["vp_row", "is_inside", "inv_dir", "escape_distance", "enter_distance", "cube_normal",
-           "cube_uv", "inverse_depth", "dot", "length", "normalize", "const"]
+           "cube_uv", "inverse_depth", "depth_to_distance", "dot", "length", "normalize",
+           "const"]

@@ -64,4 +64,23 @@ def fit(world, views, params0: VoxelParams, steps: int = 100, lr: float = 0.05,
     return out, [float(v) for v in history]
 
 
-__all__ = ["sample_views", "photometric_loss", "make_loss_fn", "fit"]
+def optimizer_step(optimizer, opt_state, values, grads):
+    """One step of an optimizer held as state: ``opt_state`` (built by the
+    factory ``optimizer`` over copies of ``values`` when None) takes
+    ``values`` into its own tensors and ``grads`` as their gradients, and
+    steps.  Returns (its tensors, opt_state); the tensors passed in are not
+    changed."""
+    if opt_state is None:
+        opt_state = optimizer([v.detach().clone() for v in values])
+    leaves = [p for group in opt_state.param_groups for p in group["params"]]
+    with torch.no_grad():
+        for leaf, v, g in zip(leaves, values, grads, strict=True):
+            leaf.copy_(v)
+            leaf.grad = g
+    opt_state.step()
+    for leaf in leaves:
+        leaf.grad = None
+    return leaves, opt_state
+
+
+__all__ = ["sample_views", "photometric_loss", "make_loss_fn", "fit", "optimizer_step"]

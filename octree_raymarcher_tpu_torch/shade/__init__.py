@@ -1,4 +1,5 @@
-from .atlas import default_atlas
+from .atlas import (atlas_from_sheet, default_atlas, load_atlas_png, save_atlas_png,
+                    sheet_from_atlas)
 from .camera import OrthoCamera, PerspectiveCamera
 from .envmap import default_envmap, sample_env
 from .lights import DirectionalLight, LightRig, PointLight, Spotlight

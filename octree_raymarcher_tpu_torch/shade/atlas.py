@@ -84,4 +84,54 @@ def default_atlas(
     return np.clip(atlas, 0.0, 1.0) ** (1.0 / 2.2)
 
 
-__all__ = ["default_atlas"]
+def sheet_from_atlas(atlas: np.ndarray) -> np.ndarray:
+    """Pack f32[M,R,R,3] tiles into one u8 sheet laid out by the reference's
+    leafUV addressing: material m occupies tile (x = m & 0xff, y = m >> 8).
+    Returns uint8 [rows*R, cols*R, 3] with cols = min(M,256)."""
+    M, R = atlas.shape[0], atlas.shape[1]
+    cols = min(M, 256)
+    rows = (M + 255) // 256
+    sheet = np.zeros((rows * R, cols * R, 3), dtype=np.uint8)
+    for m in range(M):
+        x, y = m & 0xFF, m >> 8
+        sheet[y * R : (y + 1) * R, x * R : (x + 1) * R] = (
+            np.clip(atlas[m], 0, 1) * 255 + 0.5
+        ).astype(np.uint8)
+    return sheet
+
+
+def atlas_from_sheet(sheet: np.ndarray, tile: int,
+                     num_materials: int = NUM_MATERIALS) -> np.ndarray:
+    """Slice a reference-style atlas sheet (uint8 [H,W,3/4]) into
+    f32[M, tile, tile, 3] by the leafUV tile addressing (x = m & 0xff,
+    y = m >> 8; shaders/World.Fragment.glsl:10-12)."""
+    s = np.asarray(sheet)
+    if s.dtype == np.uint8:
+        s = s.astype(np.float32) / 255.0
+    s = s[..., :3]
+    out = np.zeros((num_materials, tile, tile, 3), dtype=np.float32)
+    for m in range(num_materials):
+        x, y = m & 0xFF, m >> 8
+        ys, xs = y * tile, x * tile
+        if ys + tile > s.shape[0] or xs + tile > s.shape[1]:
+            raise ValueError(f"sheet {s.shape} too small for material {m} at tile {tile}")
+        out[m] = s[ys : ys + tile, xs : xs + tile]
+    return out
+
+
+def load_atlas_png(path: str, tile: int, num_materials: int = NUM_MATERIALS) -> np.ndarray:
+    """Load a PNG atlas sheet and slice it per material (the reference's
+    TextureAtlas::init + leafUV, src/Atlas.cpp:29-33)."""
+    from ..utils.png import load_png
+
+    return atlas_from_sheet(load_png(path), tile, num_materials)
+
+
+def save_atlas_png(path: str, atlas: np.ndarray) -> None:
+    from ..utils.png import save_png
+
+    save_png(path, sheet_from_atlas(atlas))
+
+
+__all__ = ["default_atlas", "atlas_from_sheet", "sheet_from_atlas", "load_atlas_png",
+           "save_atlas_png"]

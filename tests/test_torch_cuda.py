@@ -14,9 +14,14 @@ relative to the largest gradient, because its scatter sums in its own order
 (runs, warp groups, block tables, then atomics in run-to-run order)
 (tolerance as in chip_smoke.py)."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+
+from octree_raymarcher_tpu_torch import entry
 
 from octree_raymarcher_tpu_torch.diff.composite import (
     COMPOSITE_BWD_KERNEL,
@@ -35,6 +40,7 @@ from octree_raymarcher_tpu_torch.diff.segments import (
     sample_segments_plain,
     segments_plan,
 )
+from octree_raymarcher_tpu_torch.ops.guards import GuardError, composite_checked, march_checked
 from octree_raymarcher_tpu_torch.ops.march import (
     MARCH_DEPTH_KERNEL,
     MARCH_KERNEL,
@@ -43,6 +49,16 @@ from octree_raymarcher_tpu_torch.ops.march import (
     march_depth_plain,
     march_plain,
 )
+from octree_raymarcher_tpu_torch.parallel import (
+    init_distributed,
+    local_address,
+    make_mesh,
+    make_sharded_train_step,
+    make_zero_train_step,
+    march_sharded,
+    render_frame_sharded,
+    render_sharded,
+)
 from octree_raymarcher_tpu_torch.shade import (
     LightRig,
     MaterialTable,
@@ -50,6 +66,7 @@ from octree_raymarcher_tpu_torch.shade import (
     RenderConfig,
     default_atlas,
     default_envmap,
+    render,
     shade_hits,
     shade_hits_plain,
 )
@@ -490,3 +507,143 @@ def test_patch_kernel_growth_then_patch():
     torch.cuda.synchronize()
     assert PATCH_KERNEL.launches == before + 2
     _assert_worlds_equal(gw, cw)
+
+
+# ---- the ray-sharded paths on a one-rank NCCL group -----------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank NCCL group on cuda:0 (one card: the collectives run, no
+    exchange between cards does)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (NCCL runs only on the card)")
+    created = not dist.is_initialized()
+    init_distributed(local_address(), 1, 0, device="cuda")
+    yield make_mesh("cuda")
+    if created:
+        dist.destroy_process_group()
+
+
+def _launches():
+    return (MARCH_KERNEL.launches, SHADE_KERNEL.launches, SEGMENTS_KERNEL.launches,
+            COMPOSITE_FWD_KERNEL.launches, COMPOSITE_BWD_KERNEL.launches)
+
+
+def test_sharded_render_and_march_equal_one_process(gpu_scene, nccl_mesh):
+    """The same kernels on the same rays: bit for bit, with K1 and K2 once a
+    call (K1 twice with ray shadows) and once a group of the tiled frame."""
+    world, o, d, eye, _ = gpu_scene
+    n = o.shape[0]
+    for cfg, k1 in ((RenderConfig(), 1), (RenderConfig(shadow="ray"), 2)):
+        before = _launches()
+        got = render_sharded(nccl_mesh, world, o, d, eye, cfg=cfg)
+        torch.cuda.synchronize()
+        assert _launches()[:2] == (before[0] + k1, before[1] + 1)
+        assert torch.equal(got, render(world, o, d, eye, cfg=cfg)["rgb"]), cfg.shadow
+    tile = 1000
+    before = _launches()
+    frame = render_frame_sharded(nccl_mesh, world, o, d, eye, tile=tile)
+    torch.cuda.synchronize()
+    groups = -(-n // tile)
+    assert _launches()[:2] == (before[0] + groups, before[1] + groups)
+    assert torch.equal(frame, render(world, o, d, eye)["rgb"])
+    hit, t, mat = march_sharded(nccl_mesh, world, o, d)
+    ref = march(world, o, d, 512)
+    assert torch.equal(hit, ref.hit) and torch.equal(mat, ref.material)
+    assert torch.equal(t.view(torch.int32), ref.t.view(torch.int32))
+
+
+class _RecordingAdam(torch.optim.Adam):
+    """Adam that keeps a copy of the gradients its last step was given."""
+
+    def step(self, closure=None):
+        self.seen = [p.grad.detach().clone() for g in self.param_groups for p in g["params"]]
+        return super().step(closure)
+
+
+def test_sharded_step_modes_agree(gpu_scene, nccl_mesh, monkeypatch):
+    """Blocking, overlapped and ZeRO steps on the card: grad_tiles launches
+    of K4, K5 and K6 a step and nothing else, the overlapped step's
+    all-reduces asynchronous, falling losses, and step 1's gradients within
+    K6's tolerance of the blocking step's (|g - gb| <= 1e-3|gb| + 1e-5
+    max|gb|, as chip_smoke.py holds K6), its params within that tolerance
+    carried through Adam's first update lr*g/(|g| + eps)."""
+    world, o, d, eye, _ = gpu_scene
+    target = render(world, o, d, eye)["rgb"]
+    params0 = init_params_from_world(world)
+    lr, K, tiles = 0.05, 16, 4
+    opt = functools.partial(_RecordingAdam, lr=lr)
+    calls = []
+    inner = dist.all_reduce
+
+    def counted(tensor, *args, async_op=False, **kwargs):
+        calls.append(bool(async_op))
+        return inner(tensor, *args, async_op=async_op, **kwargs)
+
+    monkeypatch.setattr(dist, "all_reduce", counted)
+    init_zero, zero_step = make_zero_train_step(nccl_mesh, world, opt, K, tiles)
+    modes = (("blocking", make_sharded_train_step(nccl_mesh, world, opt, K, False, tiles), None),
+             ("overlap", make_sharded_train_step(nccl_mesh, world, opt, K, True, tiles), None),
+             ("zero", zero_step, init_zero(params0)))
+    runs = {}
+    for name, step, state in modes:
+        calls.clear()
+        before = _launches()
+        p1, state, loss1 = step(params0, state, world, o, d, target)
+        seen = state.seen
+        _, state, loss2 = step(p1, state, world, o, d, target)
+        torch.cuda.synchronize()
+        grew = tuple(a - b for a, b in zip(_launches(), before))
+        assert grew == (0, 0, 2 * tiles, 2 * tiles, 2 * tiles), name
+        n_async = 2 * tiles if name == "overlap" else 0
+        n_block = {"blocking": 3, "overlap": 1, "zero": 1}[name]
+        assert sorted(calls) == sorted([True] * 2 * n_async + [False] * 2 * n_block), name
+        assert np.isfinite([float(loss1), float(loss2)]).all() and float(loss2) < float(loss1)
+        runs[name] = (float(loss1), p1, seen)
+    lb, pb, gb = runs["blocking"]
+    for name in ("overlap", "zero"):
+        loss, p, g = runs[name]
+        assert abs(loss - lb) <= 1e-5 * abs(lb), name
+        for a, b, pa, pbl in zip(g, gb, (p.density_raw, p.albedo_raw),
+                                 (pb.density_raw, pb.albedo_raw)):
+            scale = float(b.abs().max())
+            assert bool(((a - b).abs() <= 1e-3 * b.abs() + 1e-5 * scale).all()), name
+            lim = lr * (1e-3 + 1e-5 * scale / (b.abs() + 1e-8))
+            assert bool(((pa - pbl).abs() <= lim).all()), name
+
+
+def test_entry_and_dryrun_on_the_card(nccl_mesh):
+    """entry()'s frame on the card within K2's tolerance of the plain one
+    (1e-5 + 1e-4|plain|, as test_shade_kernel_matches_plain), and
+    dryrun_multichip(1) on the one-rank group."""
+    fn, args = entry.entry()
+    got = fn(*args)
+    assert got.is_cuda and tuple(got.shape) == (64 * 64, 3)
+    cfn, cargs = entry.entry(device="cpu")
+    want = cfn(*cargs)
+    assert bool(((got.cpu() - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
+    out = entry.dryrun_multichip(1)
+    assert out["rgb"].is_cuda and np.isfinite(list(out["losses"].values())).all()
+
+
+def test_guards_on_the_card(gpu_scene):
+    """march_checked equals march; a NaN direction raises before K1
+    launches; composite_checked passes K4's segments and flags bad slots."""
+    world, o, d, _, _ = gpu_scene
+    got = march_checked(world, o, d)
+    ref = march(world, o, d)
+    for k in ("hit", "t", "material", "texel", "cell_bmin", "cell_size"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+    bad = d.clone()
+    bad[3, 1] = float("nan")
+    before = MARCH_KERNEL.launches
+    with pytest.raises(GuardError, match="march: non-finite ray direction"):
+        march_checked(world, o, bad)
+    assert MARCH_KERNEL.launches == before
+    segs = sample_segments(world, o, d, 8)
+    params = init_params_from_world(world)
+    assert torch.isfinite(composite_checked(segs, params)["rgb"]).all()
+    wrong = SegmentBatch(torch.where(segs.slot >= 0, segs.slot + params.num_slots, segs.slot),
+                         segs.t0, segs.t1, segs.count)
+    with pytest.raises(GuardError, match="composite: segment slot out of range"):
+        composite_checked(wrong, params)

@@ -21,7 +21,10 @@ import pytest
 import torch
 
 import octree_raymarcher_tpu_torch as port
-from octree_raymarcher_tpu_torch import demo, kernels
+from octree_raymarcher_tpu_torch import demo, entry, kernels
+from octree_raymarcher_tpu_torch.models import VoxelScene
+from octree_raymarcher_tpu_torch.ops.guards import march_checked
+from octree_raymarcher_tpu_torch.parallel import init_distributed, local_address
 from octree_raymarcher_tpu_torch.ops.march import MARCH_KERNEL, march, march_frame
 from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL, render, render_frame
 from octree_raymarcher_tpu_torch.world.alloc import PATCH_KERNEL, WorldAllocator
@@ -83,6 +86,28 @@ def test_no_reference_modules_loaded():
     assert len(mods) >= 15
 
 
+def test_multi_gpu_scene_and_guard_modules_import_without_jax():
+    """The sharded paths, the scene, the entry twin and the guards are
+    walked by the scan above and import in a fresh interpreter with no JAX."""
+    mods = [f"octree_raymarcher_tpu_torch.{m}" for m in (
+        "parallel", "parallel.mesh", "parallel.render_sharded", "models", "models.scene",
+        "entry", "ops.guards")]
+    walked = {m.name for m in pkgutil.walk_packages(port.__path__, prefix=port.__name__ + ".")}
+    assert set(mods) <= walked
+    code = (
+        "import importlib, re, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "pat = re.compile(r'^(jax|flax|optax|octree_raymarcher_tpu)(\\.|$)')\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
+        "print('BAD', sorted(m for m in sys.modules if pat.match(m)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 @pytest.fixture
 def tiny():
     """A small world, its packed pools, and a few rays."""
@@ -114,6 +139,10 @@ def test_entry_points_raise_without_gpu(tiny, monkeypatch):
         lambda: render(cpu_world, o, d, eye),
         lambda: render_frame(cpu_world, o, d, eye),
         lambda: kernels.library(),
+        lambda: VoxelScene.demo(16.0, 4, 3),
+        lambda: entry.entry(),
+        lambda: march_checked(cpu_world, o, d),
+        lambda: init_distributed(local_address(), 1, 0),
     ):
         with pytest.raises(RuntimeError, match="CUDA|cuda"):
             call()
