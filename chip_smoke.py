@@ -17,10 +17,13 @@ order, and then:
      default atlas and sky map;
   6. renders the frame with render_frame(shadow="none") through both kernels,
      plain and textured, and times it with CUDA events; the launch counters
-     are zeroed just before this phase and read just after; then times each
-     kernel and plain version alone (K2 also replayed from a CUDA graph with
-     its inputs rotated past the L2, its device time), and K1 under two
-     other ray orders;
+     are zeroed just before this phase and read just after, and each of K2's
+     untextured and textured instantiations must have run once a frame; then
+     times each kernel and plain version alone (K2's loops of calls with its
+     tables on the card and on the host; K2 also replayed from a CUDA graph
+     with its inputs rotated past the L2, its device time), counts the
+     frame's all-hit, all-miss and mixed warps, and times K1 under two other
+     ray orders;
   7. renders the golden scene of tests/test_golden.py on the card and checks
      it against the committed golden thumbnails;
   8. shadows: holds K3's three entries (ray_prep, shadow_resolve,
@@ -74,15 +77,21 @@ order, and then:
      any launch).  The frames, the marches and one step of each mode are
      timed by CUDA events.
 
-Phases 6 and 8 also print the bound of the textured K2 (K2's bytes and the
-distinct atlas texels and sky-map taps the frame reads).
+Last, one K2 call with its eye and tables on the host is traced by
+torch.profiler: no host-to-device copy may appear.
+
+Phases 6 and 8 also print K2's bounds: its bytes (a hit reads its t and
+material, a miss does not) and the operations of each ray's outcome, and
+for the textured instantiations the distinct atlas texels and sky-map taps
+the frame reads and the sky's and the atlas decode's operations.
 
 Phase 1 prints the card's name and power limit (nvidia-smi) and ptxas's
 registers, shared memory and spills for every instantiation of K1, K2 and
 K4.  Every phase prints its
 lines; any failure raises and the script exits nonzero without printing a
 result.  The line before the last is a JSON object with one entry per
-kernel (times, launches and the path that made them, bounds); the last
+kernel and per instantiation of K2 (times, launches and the path that made
+them, bounds); the last
 line is {"ok": true, "device": {...}}.  With no CUDA device it exits 1 at once.
 """
 
@@ -110,9 +119,20 @@ FP32_OPS_PER_S = 67e12          # float32 outside the tensor cores
 # csrc/march.cu with one descent level: clamp 1, point 6, in-world 6,
 # chunk index 9, descent level 11, texel probe 14, escape 26.
 MARCH_OPS_PER_STEP = 73
-# Float operations of K2 per ray (no atlas), counted from csrc/shade.cu:
-# hit point 7, cube normal 44, three lights 3 x ~95, sky or depth ~20.
-SHADE_OPS_PER_RAY = 360
+# Float operations of K2, counted from csrc/shade.cu (a transcendental
+# counts one).  Every ray: hit point 7, cube normal and cmax 46.  A hit: the
+# view vector 13, the point light 84, the directional 69, the spot 114, lit
+# 1, depth 13.  A miss of an untextured frame: none (the sky constant).
+SHADE_OPS_PER_RAY = 53
+SHADE_OPS_PER_HIT = 294
+# The textured instantiations beside those: a hit adds cube_uv and the
+# texel address 32 and the material colours times the texel 6; a miss
+# samples the sky map: normalize 10, atan2f and u 3, acosf and v 4, the
+# texel coordinates 8, the weights 2, four bilinear taps 33.  The atlas is
+# gamma-decoded once per channel (fmaxf, powf) in the launch, not per hit.
+SHADE_TEX_OPS_PER_HIT = 38
+SHADE_TEX_OPS_PER_MISS = 60
+ATLAS_DECODE_OPS_PER_CHANNEL = 2
 # K3 per ray, counted from csrc/shadow.cu: ray_prep = hit point 7 + cube
 # normal 44 + start 6; shadow_resolve = point 7 + row 6; map_project = hit
 # point 7 + four rows 24 + divide and sign 9 + uv and texel 8 + compare 3.
@@ -460,7 +480,7 @@ def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080)
         fail(f"K7 launches {read_counts()['patch']} != batches {len(kinds)}")
     if kinds.count("lod") != 1 or kinds.count("shift") != 1 or kinds.count("edit") < 1:
         fail(f"the session's batches are {kinds}: want edits, one lod and one shift")
-    for k in ("march", "ray_prep", "shade"):
+    for k in ("march", "ray_prep", "shade textured"):
         if read_counts()[k] == 0:
             fail(f"kernel {k} was not launched by the session's frames")
     for (kind, batch, apply_s), (_, _, err) in zip(session["batches"], batch_log):
@@ -539,7 +559,8 @@ def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080)
     del scratch
     k7_ms, k7_plain, k7_lib, k7_bound = (float(np.mean(c)) for c in zip(*patch_rows))
     return {"launches": session_launches["patch"], "err": float(max(e for _, _, e in batch_log)),
-            "ms": k7_ms, "plain_ms": k7_plain, "library_ms": k7_lib, "bound_ms": k7_bound}
+            "ms": k7_ms, "plain_ms": k7_plain, "library_ms": k7_lib, "bound_ms": k7_bound,
+            "shade_launches": session_launches["shade textured"]}
 
 
 
@@ -851,14 +872,18 @@ def main() -> int:
     from octree_raymarcher_tpu_torch.shade.render import (
         SHADE_KERNEL,
         SHADE_MAP_KERNEL,
+        SHADE_MAP_TEX_KERNEL,
+        SHADE_TEX_KERNEL,
         _ray_shadow_hits,
         _shade_launch,
+        shade_tables,
     )
     from octree_raymarcher_tpu_torch.world.alloc import PATCH_KERNEL
     from octree_raymarcher_tpu_torch.world.world import World
 
     counters = {"march": MARCH_KERNEL, "march_depth": MARCH_DEPTH_KERNEL,
-                "shade": SHADE_KERNEL, "shade_map": SHADE_MAP_KERNEL,
+                "shade": SHADE_KERNEL, "shade textured": SHADE_TEX_KERNEL,
+                "shade_map": SHADE_MAP_KERNEL, "shade_map textured": SHADE_MAP_TEX_KERNEL,
                 "ray_prep": S.RAY_PREP_KERNEL, "shadow_resolve": S.SHADOW_RESOLVE_KERNEL,
                 "map_project": S.MAP_PROJECT_KERNEL, "segments": SEGMENTS_KERNEL,
                 "composite_fwd": COMPOSITE_FWD_KERNEL,
@@ -979,10 +1004,12 @@ def main() -> int:
     out = frame_plain()
     out_tex = frame_textured()
     torch.cuda.synchronize()
-    launches = {k: v for k, v in read_counts().items() if k in ("march", "shade")}
-    for k, v in launches.items():
-        if v == 0:
-            fail(f"kernel {k} was not launched by the frame")
+    launches = {k: v for k, v in read_counts().items() if v}
+    # cuda_ms's warm-up, its TIMED_ITERS frames and the one above, of each
+    want = {"march": 2 * (TIMED_ITERS + 2), "shade": TIMED_ITERS + 2,
+            "shade textured": TIMED_ITERS + 2}
+    if launches != want:
+        fail(f"the hard frames launched {launches}, want {want}")
     for res in (out, out_tex):
         if tuple(res["rgb"].shape) != (n, 3) or not bool(torch.isfinite(res["rgb"]).all()):
             fail("frame rgb is not finite f32[N,3]")
@@ -1012,31 +1039,54 @@ def main() -> int:
         fail(f"K1 with step_budget disagrees with march_plain: {bmism}")
     del rb, rbp
     rf = march(world, O, D, **fk)
+    hits = int(rf.hit.sum())
+    tex = dict(atlas=atlas, envmap=env)
+    # K2's loops of calls (the host's launch path): tables on the card (the
+    # eye and the material table), and on the host (both by value)
+    eye_host, mats_host = cam.position, MaterialTable.default()
     k2_ms = cuda_ms(lambda: shade_hits(rf, O, D, eye, lights, mats, cfg), TIMED_ITERS)
+    k2h_ms = cuda_ms(lambda: shade_hits(rf, O, D, eye_host, lights, mats_host, cfg),
+                     TIMED_ITERS)
     p2_ms = cuda_ms(lambda: shade_hits_plain(rf, O, D, eye, lights, mats, cfg), 5)
-    k2t_ms = cuda_ms(lambda: shade_hits(rf, O, D, eye, lights, mats, cfg,
-                                        atlas=atlas, envmap=env), TIMED_ITERS)
-    mats_dev = mats.to_matrix().to(dev)
-    light_dev = torch.as_tensor(lights.to_vector(), dtype=torch.float32).to(dev)
-    k2g_ms = cold_graph_ms(lambda r, o, d: _shade_launch(r, o, d, eye, mats_dev, light_dev,
-                                                         cfg), (rf, O, D), TIMED_ITERS)
-    k2tg_ms = cold_graph_ms(lambda r, o, d: _shade_launch(r, o, d, eye, mats_dev, light_dev,
-                                                          cfg, atlas=atlas, envmap=env),
+    k2t_ms = cuda_ms(lambda: shade_hits(rf, O, D, eye, lights, mats, cfg, **tex), TIMED_ITERS)
+    k2th_ms = cuda_ms(lambda: shade_hits(rf, O, D, eye_host, lights, mats_host, cfg, **tex),
+                      TIMED_ITERS)
+    p2t_ms = cuda_ms(lambda: shade_hits_plain(rf, O, D, eye, lights, mats, cfg, **tex), 5)
+    tables = shade_tables(eye, lights, mats, cfg, dev)
+    k2g_ms = cold_graph_ms(lambda r, o, d: _shade_launch(r, o, d, tables, cfg), (rf, O, D),
+                           TIMED_ITERS)
+    k2tg_ms = cold_graph_ms(lambda r, o, d: _shade_launch(r, o, d, tables, cfg, **tex),
                             (rf, O, D), TIMED_ITERS)
     print(f"phase 6 kernels alone: K1 {k1_ms:.4f} ms (plain {p1_ms:.2f} ms), K1 with "
           f"step_budget=512, steps_stride=16 {k1b_ms:.4f} ms (plain {p1b_ms:.2f} ms; exact vs "
-          f"plain: mismatching rays {bmism}), K2 {k2_ms:.4f} ms (plain {p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms; "
-          f"K2 device time per launch in a CUDA graph (inputs from memory): {k2g_ms:.4f} ms, "
-          f"textured {k2tg_ms:.4f} ms", flush=True)
-    # the textured K2's bound: K2's bytes (per ray 49 in, 40 out; the
-    # material and light tables) and the distinct atlas texels and sky-map
-    # taps the frame reads; its operations counted as K2's
-    k2_bytes = n * (49 + 40) + mats.to_matrix().nbytes + 50 * 4
+          f"plain: mismatching rays {bmism}); K2 by CUDA events over a loop of calls with the "
+          f"tables on the card {k2_ms:.4f} ms, on the host {k2h_ms:.4f} ms (plain "
+          f"{p2_ms:.2f} ms), K2 textured {k2t_ms:.4f} ms, on the host {k2th_ms:.4f} ms (plain "
+          f"{p2t_ms:.2f} ms); K2 device time per launch in a CUDA graph (inputs from memory): "
+          f"{k2g_ms:.4f} ms, textured {k2tg_ms:.4f} ms", flush=True)
+    # K2's bounds: per ray 41 bytes in (hit, o, d, cell) and 40 out, per hit
+    # 8 more (t, material), the material table; the operations of the rays'
+    # outcomes.  Textured: the distinct atlas texels and sky-map taps the
+    # frame reads, and their operations.
+    k2_bytes = (n * (41 + 40) + hits * 8
+                + sum(c.nbytes for c in (mats.diffuse, mats.specular, mats.shininess)))
+    k2_ops = SHADE_OPS_PER_RAY * n + SHADE_OPS_PER_HIT * hits
     tex_bytes = texture_bytes(rf, O, D, atlas, env)
-    b2t = bound_ms(k2_bytes + tex_bytes, SHADE_OPS_PER_RAY * n)
-    print(f"phase 6 K2 textured bound {b2t[0]:.5f} ms by {b2t[1]} ({k2_bytes} bytes of K2 + "
-          f"{tex_bytes} of atlas texels and sky-map taps); device time {k2tg_ms:.4f} ms, "
-          f"{b2t[0] / k2tg_ms:.4f} of its bound", flush=True)
+    tex_ops = (SHADE_TEX_OPS_PER_HIT * hits + SHADE_TEX_OPS_PER_MISS * (n - hits)
+               + ATLAS_DECODE_OPS_PER_CHANNEL * atlas.numel())
+    b2 = bound_ms(k2_bytes, k2_ops)
+    b2t = bound_ms(k2_bytes + tex_bytes, k2_ops + tex_ops)
+    print(f"phase 6 K2 bound {b2[0]:.5f} ms by {b2[1]} ({k2_bytes} bytes, {k2_ops} operations; "
+          f"{hits} hits), {b2[0] / k2g_ms:.4f} of it; textured {b2t[0]:.5f} ms by {b2t[1]} "
+          f"(+ {tex_bytes} bytes of atlas texels and sky-map taps, + {tex_ops} operations), "
+          f"device time {k2tg_ms:.4f} ms, {b2t[0] / k2tg_ms:.4f} of its bound", flush=True)
+    # warps of 32 consecutive rays in launch order: all hit, all miss, mixed
+    wh = rf.hit.view(-1, 32)
+    warp_share = {"all_hit": float(wh.all(dim=1).float().mean()),
+                  "all_miss": float((~wh.any(dim=1)).float().mean())}
+    warp_share["mixed"] = 1.0 - warp_share["all_hit"] - warp_share["all_miss"]
+    print(f"phase 6 K2 warps (32 consecutive rays, {wh.shape[0]} warps): {warp_share}",
+          flush=True)
 
     # K1 under other ray orders: warps of 32 consecutive rays in each order.
     orders = {"scanline": np.arange(n),
@@ -1160,13 +1210,14 @@ def main() -> int:
           flush=True)
 
     cfg_ray = RenderConfig(shadow="ray", max_steps=512, assume_resident=True)
-    map_path = {"march_depth": 1, "march": 1, "shade_map": 1}
     shadow_frames = {
         "ray": (lambda: render_frame(world, O, D, eye, cfg=cfg_ray, device=dev),
                 {"march": 2, "ray_prep": 1, "shade": 1}),
-        "map": (lambda: render_frame(world, O, D, eye, cfg=cfg_map, device=dev), map_path),
+        "map": (lambda: render_frame(world, O, D, eye, cfg=cfg_map, device=dev),
+                {"march_depth": 1, "march": 1, "shade_map": 1}),
         "full": (lambda: render_frame(world, O, D, eye, cfg=cfg_map, atlas=atlas, envmap=env,
-                                      device=dev), map_path),
+                                      device=dev),
+                 {"march_depth": 1, "march": 1, "shade_map textured": 1}),
     }
     shadow_ms, shadow_launches = {}, {}
     for name, (fn, per_frame) in shadow_frames.items():
@@ -1234,6 +1285,8 @@ def main() -> int:
                     TIMED_ITERS)
     sm_plain_ms = cuda_ms(lambda: shade_hits_plain(rk, O, D, eye, lights, mats, cfg_map,
                                                    shadowmap=smap), 5)
+    smt_plain_ms = cuda_ms(lambda: shade_hits_plain(rk, O, D, eye, lights, mats, cfg_map,
+                                                    shadowmap=smap, **tex), 5)
     sray_ms = cuda_ms(lambda: march(world, start, sdirs, 512, live_start=live, device=dev),
                       TIMED_ITERS)
     light_ms = cuda_ms(lambda: march(world, lorig, ldirs, 512, assume_resident=True,
@@ -1258,11 +1311,10 @@ def main() -> int:
             lambda o, d, row: march_depth(world, o, d, row, 512, assume_resident=True,
                                           device=dev), (lorig, ldirs, vp[2]), TIMED_ITERS),
         "shade_map": cold_graph_ms(
-            lambda r, o, d, m: _shade_launch(r, o, d, eye, mats_dev, light_dev, cfg_map,
-                                             shadowmap=m), shade_in, TIMED_ITERS),
+            lambda r, o, d, m: _shade_launch(r, o, d, tables, cfg_map, shadowmap=m),
+            shade_in, TIMED_ITERS),
         "shade_map textured": cold_graph_ms(
-            lambda r, o, d, m: _shade_launch(r, o, d, eye, mats_dev, light_dev, cfg_map,
-                                             atlas=atlas, envmap=env, shadowmap=m),
+            lambda r, o, d, m: _shade_launch(r, o, d, tables, cfg_map, shadowmap=m, **tex),
             shade_in, TIMED_ITERS),
     }
     print(f"phase 8 device ms per launch in a CUDA graph, inputs from memory: {dev_ms} (K2 "
@@ -1270,7 +1322,7 @@ def main() -> int:
     # the textured map-shadowed K2's bound: the map-shadowed K2's bytes and
     # operations (below) and the texture bytes of phase 6 (the same hits)
     b_smt = bound_ms(k2_bytes + depth_map.numel() * 4 + tex_bytes,
-                     SHADE_OPS_PER_RAY * n + (PROJECT_OPS - 7) * int(rk.hit.sum()))
+                     k2_ops + tex_ops + (PROJECT_OPS - 7) * hits)
     print(f"phase 8 map-shadowed K2 textured bound {b_smt[0]:.5f} ms by {b_smt[1]}; device "
           f"time {dev_ms['shade_map textured']:.4f} ms, "
           f"{b_smt[0] / dev_ms['shade_map textured']:.4f} of its bound", flush=True)
@@ -1526,12 +1578,22 @@ def main() -> int:
     # ---- 12. the ray-sharded paths on a one-rank NCCL group ----------------------------
     phase_sharded(world, O, D, eye, cfg, out["rgb"], dev, zero_counts, read_counts, smi)
 
+    # ---- K2 with its tables on the host uploads nothing ------------------------
+    # one call traced by torch.profiler (last: a trace taken before phase 12's
+    # dropped device events there): no host-to-device copy may appear (the
+    # atlas and the sky map are on the card already)
+    k2_trace = device_breakdown(
+        lambda: shade_hits(rf, O, D, eye_host, lights, mats_host, cfg, **tex), top=20)[1]
+    if any("HtoD" in name for name, _ in k2_trace):
+        fail(f"shade_hits with host tables copied to the card: {k2_trace}")
+    print(f"K2 with host tables, one call by torch.profiler: "
+          f"{k2_trace or 'no device events traced'} (no host-to-device copy)", flush=True)
+
     # ---- result ---------------------------------------------------------------
     ray_io = 24 + 33                     # o, d in; hit t material cell size steps texel out
     k1_bytes = (n * ray_io + packed.tree.nbytes + packed.twig_occ.nbytes
                 + packed.chunk_bmin.nbytes + 2 * packed.chunk_tree.nbytes + 4 * twig_hits)
     b1, by1 = bound_ms(k1_bytes, MARCH_OPS_PER_STEP * steps_sum)
-    b2, by2 = bound_ms(k2_bytes, SHADE_OPS_PER_RAY * n)
     b_rp = bound_ms(n * (45 + 28), RAY_PREP_OPS * n)
     b_rs = bound_ms(n_light * (29 + 4), RESOLVE_OPS * n_light)
     b_mp = bound_ms(n * (29 + 4) + depth_map.numel() * 4, PROJECT_OPS * n)
@@ -1540,8 +1602,7 @@ def main() -> int:
     # map, and the projection (less the hit point K2 has) on every hit
     b_md = bound_ms(n_light * (24 + 4) + pools_k1,
                     MARCH_OPS_PER_STEP * light_steps + RESOLVE_OPS * n_light)
-    b_sm = bound_ms(k2_bytes + depth_map.numel() * 4,
-                    SHADE_OPS_PER_RAY * n + (PROJECT_OPS - 7) * int(rk.hit.sum()))
+    b_sm = bound_ms(k2_bytes + depth_map.numel() * 4, k2_ops + (PROJECT_OPS - 7) * hits)
     pools = (packed.tree.nbytes + packed.twig_occ.nbytes + packed.chunk_bmin.nbytes
              + 2 * packed.chunk_tree.nbytes)
     b_seg = bound_ms(n * (24 + 4 + 12 * K) + pools + 4 * (n_valid - n_leaf),
@@ -1559,7 +1620,7 @@ def main() -> int:
                 "bound_by": bound[1], "library_ms": library}
 
     sl = {k: sum(v.get(k, 0) for v in shadow_launches.values())
-          for k in ("ray_prep", "march_depth", "shade_map")}
+          for k in ("ray_prep", "march_depth", "shade_map", "shade_map textured")}
     report = {"kernels": [
         entry("march", "march.cu", "octree_raymarcher_tpu/ops/march_jnp.py:474",
               "hard frames", launches["march"], march_err, k1_ms, p1_ms, (b1, by1)),
@@ -1567,8 +1628,12 @@ def main() -> int:
         # inputs from memory (their loops of calls are host-bound; phases 6
         # and 8 print both)
         entry("shade", "shade.cu", "octree_raymarcher_tpu/shade/render.py:62",
-              "hard frames", launches["shade"], max(shade_err.values()), k2g_ms, p2_ms,
-              (b2, by2)),
+              "hard frames", launches["shade"], shade_err["plain"], k2g_ms, p2_ms, b2),
+        # the textured instantiation: the textured hard frames and the session
+        entry("shade textured", "shade.cu", "octree_raymarcher_tpu/shade/render.py:62",
+              "textured hard frames + session",
+              launches["shade textured"] + k7["shade_launches"], shade_err["textured"],
+              k2tg_ms, p2t_ms, b2t),
         entry("ray_prep", "shadow.cu", "octree_raymarcher_tpu/shade/render.py:139",
               "shadowed frames", sl["ray_prep"], prep_err, dev_ms["ray_prep"], rp_plain_ms,
               b_rp),
@@ -1584,8 +1649,12 @@ def main() -> int:
               "shadowed frames", sl["march_depth"], md_err, dev_ms["march_depth"],
               md_plain_ms, b_md),
         entry("shade_map", "shade.cu", "octree_raymarcher_tpu/shade/render.py:427",
-              "shadowed frames", sl["shade_map"], max(sm_err.values()), dev_ms["shade_map"],
+              "map frames", sl["shade_map"], sm_err["plain"], dev_ms["shade_map"],
               sm_plain_ms, b_sm),
+        # the full frame users look at (map + atlas + sky map)
+        entry("shade_map textured", "shade.cu", "octree_raymarcher_tpu/shade/render.py:427",
+              "full frames", sl["shade_map textured"], sm_err["textured"],
+              dev_ms["shade_map textured"], smt_plain_ms, b_smt),
         entry("segments", "segments.cu", "octree_raymarcher_tpu/diff/segments.py:96",
               "fit", fit_launches["segments"], seg_err, seg_ms, seg_plain_ms, b_seg),
         entry("composite_fwd", "composite.cu", "octree_raymarcher_tpu/diff/composite.py:89",

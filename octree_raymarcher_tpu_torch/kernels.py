@@ -40,8 +40,8 @@ _WORLD = [_P] * 7 + [_F, _I, _I, _I, _I, _I64, _I64]   # csrc/march_step.cuh wor
 SIGNATURES = {
     "ort_march": _WORLD + [_P] * 5 + [_I64, _I, _I, _I, _I, _I] + [_P] * 7 + [_P],
     "ort_march_depth": _WORLD + [_P, _P, _I64, _I, _I, _P, _P] + [_P],
-    "ort_shade": [_P] * 9 + [_P, _I, _I, _P, _F] + [_P]
-                 + [_I, _P, _P, _I, _I, _P, _I, _I, _F, _F, _F, _F, _I64] + [_P] * 4 + [_P],
+    "ort_shade": [_P] * 9 + [_P, _I, _I, _P, _F] + [_P, _I, _P, _P, _P]
+                 + [_P, _I, _I, _P, _P, _I, _I, _F, _I64] + [_P] * 4 + [_P],
     "ort_ray_prep": [_P] * 8 + [_F, _F, _F, _I64] + [_P] * 3 + [_P],
     "ort_shadow_resolve": [_P] * 5 + [_I64, _P] + [_P],
     "ort_map_project": [_P] * 6 + [_I, _I, _P, _F, _I64, _P] + [_P],

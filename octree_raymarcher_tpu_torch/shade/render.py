@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..core.constants import EPS
@@ -41,9 +42,21 @@ from .shadow import (
     shadow_bundle,
 )
 
+# K2's four instantiations, one C entry: given a depth map, the map-shadowed
+# ones; given an atlas or a sky map, the textured ones.
 SHADE_KERNEL = Kernel("ort_shade")
-# K2's map-shadowed instantiation (the same C entry, given a depth map)
+SHADE_TEX_KERNEL = Kernel("ort_shade")
 SHADE_MAP_KERNEL = Kernel("ort_shade")
+SHADE_MAP_TEX_KERNEL = Kernel("ort_shade")
+SHADE_KERNELS = {(False, False): SHADE_KERNEL, (False, True): SHADE_TEX_KERNEL,
+                 (True, False): SHADE_MAP_KERNEL, (True, True): SHADE_MAP_TEX_KERNEL}
+
+# Rows of a material table K2 holds (csrc/shade.cu kMaxMaterials), the
+# floats of a row (MaterialTable.to_matrix), and where the eye, the sky, the
+# light rig and the rows start in its host block (kBlock*).
+SHADE_MAX_MATERIALS = 32
+MATERIAL_ROW = 10
+BLOCK_EYE, BLOCK_SKY, BLOCK_LIGHTS, BLOCK_ROWS = 0, 3, 6, 56
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,22 +129,59 @@ def shade_hits_plain(res: MarchResult, o, d, eye, lights: LightRig,
             "steps": res.steps, "point": p, "normal": n}
 
 
-def _shade_cuda(res: MarchResult, o, d, eye, lights: LightRig,
-                materials: MaterialTable, cfg: RenderConfig,
-                shadow_factor=None, atlas=None, envmap=None, shadowmap=None) -> dict:
-    """Launch K2 on PyTorch's current stream; outputs allocated here."""
-    dev = o.device
-    return _shade_launch(res, o, d, eye, to_device(materials.to_matrix(), dev),
-                         to_device(lights.to_vector(), dev), cfg, shadow_factor, atlas,
-                         envmap, shadowmap)
+@dataclasses.dataclass
+class ShadeTables:
+    """What K2 takes besides the per-ray arrays (csrc/shade.cu ShadeArgs):
+    ``block``, the host floats its parameter block carries (the eye, the
+    sky, the light rig and, for a material table on the host, its rows);
+    ``eye``, the eye when it is on the card (else in the block);
+    ``columns``, the card's diffuse, specular and shininess when the
+    table is there (else its rows are in the block); ``num_materials``."""
+
+    block: np.ndarray
+    eye: torch.Tensor | None
+    columns: tuple | None
+    num_materials: int
 
 
-def _shade_launch(res: MarchResult, o, d, eye, mats, light_vec, cfg: RenderConfig,
+def shade_tables(eye, lights: LightRig, materials: MaterialTable, cfg: RenderConfig,
+                 device) -> ShadeTables:
+    """Pack K2's tables for one launch on ``device``.  The rig, the sky and
+    a host eye and host material table go by value, so a call uploads
+    nothing; an eye or a table on the card is passed by pointer and never
+    read back.  A table of more than ``SHADE_MAX_MATERIALS`` rows (or none)
+    raises: the block holds no more."""
+    m = materials.num_materials
+    if not 1 <= m <= SHADE_MAX_MATERIALS:
+        raise ValueError(f"the shading kernel takes a material table of 1 to "
+                         f"{SHADE_MAX_MATERIALS} rows; this one has {m}")
+    device = torch.device(device)
+    on_card = materials.diffuse.device.type == "cuda"
+    block = np.zeros(BLOCK_ROWS + (0 if on_card else m * MATERIAL_ROW), np.float32)
+    eye_card = None
+    if isinstance(eye, torch.Tensor) and eye.device.type == "cuda":
+        eye_card = eye.to(device=device, dtype=torch.float32).reshape(3).contiguous()
+    else:
+        host = eye.detach().numpy() if isinstance(eye, torch.Tensor) else eye
+        block[BLOCK_EYE:BLOCK_EYE + 3] = np.asarray(host, np.float32).reshape(3)
+    block[BLOCK_SKY:BLOCK_SKY + 3] = np.asarray(cfg.sky, np.float32)
+    block[BLOCK_LIGHTS:BLOCK_ROWS] = lights.to_vector()
+    columns = None
+    if on_card:
+        t = materials.to(device)
+        columns = tuple(c.to(torch.float32).contiguous()
+                        for c in (t.diffuse, t.specular, t.shininess))
+    else:
+        block[BLOCK_ROWS:] = materials.to_matrix().numpy().reshape(-1)
+    return ShadeTables(block, eye_card, columns, m)
+
+
+def _shade_launch(res: MarchResult, o, d, tables: ShadeTables, cfg: RenderConfig,
                   shadow_factor=None, atlas=None, envmap=None, shadowmap=None) -> dict:
-    """K2's launch with the material matrix and light vector already on the
-    card (no host copy, so it can be captured in a CUDA graph).  With
-    ``shadowmap`` (depth on the card, vp on the host) the map-shadowed
-    instantiation runs."""
+    """K2's launch with its tables packed by :func:`shade_tables` (no host
+    copy, so it can be captured in a CUDA graph).  With ``shadowmap``
+    (depth on the card, vp on the host) a map-shadowed instantiation runs,
+    with an atlas or a sky map a textured one."""
     dev = o.device
     n = o.shape[0]
     f32 = torch.float32
@@ -142,15 +192,24 @@ def _shade_launch(res: MarchResult, o, d, eye, mats, light_vec, cfg: RenderConfi
         if (tns.device != dev or tns.dtype != dtype or not tns.is_contiguous()
                 or tns.shape[0] != n):
             raise ValueError(f"shade: {name} must be a contiguous {dtype}[{n}, ...] on {dev}")
+    for tns in (tables.eye, *(tables.columns or ())):
+        if tns is not None and (tns.device != dev or tns.dtype != f32
+                                or not tns.is_contiguous()):
+            raise ValueError(f"shade: the eye and material columns must be contiguous "
+                             f"float32 on {dev}")
     if shadow_factor is not None:
         shadow_factor = to_device(shadow_factor, dev)
         if shadow_factor.shape != (n,):
             raise ValueError(f"shade: shadow_factor must be f32[{n}]")
     if atlas is not None and (atlas.ndim != 4 or atlas.shape[1] != atlas.shape[2]
-                              or atlas.shape[3] != 3):
-        raise ValueError(f"atlas must be f32[M, R, R, 3], got {tuple(atlas.shape)}")
-    if envmap is not None and (envmap.ndim != 3 or envmap.shape[2] != 3):
-        raise ValueError(f"envmap must be f32[H, W, 3], got {tuple(envmap.shape)}")
+                              or atlas.shape[3] != 3 or atlas.dtype != f32
+                              or not atlas.is_contiguous() or atlas.device != dev):
+        raise ValueError(f"atlas must be a contiguous f32[M, R, R, 3] on {dev}, got "
+                         f"{atlas.dtype}{tuple(atlas.shape)}")
+    if envmap is not None and (envmap.ndim != 3 or envmap.shape[2] != 3 or envmap.dtype != f32
+                               or not envmap.is_contiguous() or envmap.device != dev):
+        raise ValueError(f"envmap must be a contiguous f32[H, W, 3] on {dev}, got "
+                         f"{envmap.dtype}{tuple(envmap.shape)}")
     depth_map, map_h, map_w, vp, bias = None, 0, 0, None, 0.0
     if shadowmap is not None:
         depth_map, vp = shadowmap[0], c_floats(host_vp(shadowmap[1]).reshape(16))
@@ -164,17 +223,23 @@ def _shade_launch(res: MarchResult, o, d, eye, mats, light_vec, cfg: RenderConfi
     depth = torch.empty(n, dtype=torch.float32, device=dev)
     point = torch.empty((n, 3), dtype=torch.float32, device=dev)
     normal = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    sky = [float(v) for v in cfg.sky]
-    kernel = SHADE_KERNEL if shadowmap is None else SHADE_MAP_KERNEL
+    cols = tables.columns or (None, None, None)
+    # scratch for K2's gamma-decoded atlas: the texels, then the count of the
+    # blocks that decoded them
+    decoded = (None if atlas is None
+               else torch.empty(atlas.numel() + 1, dtype=torch.float32, device=dev))
+    textured = atlas is not None or envmap is not None
+    kernel = SHADE_KERNELS[(shadowmap is not None, textured)]
     kernel(
         ptr(res.hit), ptr(res.t), ptr(res.material), ptr(res.cell_bmin),
-        ptr(res.cell_size), ptr(o), ptr(d), ptr(eye), ptr(shadow_factor),
-        ptr(depth_map), map_h, map_w, vp, bias, ptr(mats), mats.shape[0], ptr(light_vec),
+        ptr(res.cell_size), ptr(o), ptr(d), ptr(tables.eye), ptr(shadow_factor),
+        ptr(depth_map), map_h, map_w, vp, bias, tables.block.ctypes.data,
+        tables.num_materials, ptr(cols[0]), ptr(cols[1]), ptr(cols[2]),
         ptr(atlas), 0 if atlas is None else atlas.shape[0],
-        0 if atlas is None else atlas.shape[1],
+        0 if atlas is None else atlas.shape[1], ptr(decoded),
         ptr(envmap), 0 if envmap is None else envmap.shape[0],
         0 if envmap is None else envmap.shape[1],
-        sky[0], sky[1], sky[2], float(cfg.gamma), n,
+        float(cfg.gamma), n,
         ptr(rgb), ptr(depth), ptr(point), ptr(normal),
     )
     return {"rgb": rgb, "depth": depth, "hit": res.hit, "material": res.material,
@@ -192,7 +257,6 @@ def shade_hits(res: MarchResult, origins, dirs, eye, lights: LightRig,
     dev = res.t.device
     o = to_device(origins, dev)
     d = to_device(dirs, dev)
-    eye = to_device(eye, dev).reshape(3)
     if atlas is not None:
         atlas = to_device(atlas, dev)
     if envmap is not None:
@@ -201,9 +265,11 @@ def shade_hits(res: MarchResult, origins, dirs, eye, lights: LightRig,
         if shadow_factor is not None:
             raise ValueError("shade_hits takes a shadow_factor or a shadowmap, not both")
         shadowmap = (to_device(shadowmap[0], dev), host_vp(shadowmap[1]))
-    fn = _shade_cuda if o.is_cuda else shade_hits_plain
-    return fn(res, o, d, eye, lights, materials, cfg, shadow_factor, atlas, envmap,
-              shadowmap)
+    if o.is_cuda:
+        return _shade_launch(res, o, d, shade_tables(eye, lights, materials, cfg, dev), cfg,
+                             shadow_factor, atlas, envmap, shadowmap)
+    return shade_hits_plain(res, o, d, to_device(eye, dev).reshape(3), lights, materials,
+                            cfg, shadow_factor, atlas, envmap, shadowmap)
 
 
 def _ray_shadow_hits(world: TorchWorld, res: MarchResult, o, d, lights: LightRig,
@@ -282,5 +348,6 @@ def render_frame(
 
 
 __all__ = ["RenderConfig", "render", "render_frame", "render_shadowmap", "shadow_bundle",
-           "map_shadow", "ray_shadow", "shade_hits", "shade_hits_plain", "SHADE_KERNEL",
-           "SHADE_MAP_KERNEL"]
+           "map_shadow", "ray_shadow", "shade_hits", "shade_hits_plain", "shade_tables",
+           "ShadeTables", "SHADE_KERNEL", "SHADE_TEX_KERNEL", "SHADE_MAP_KERNEL",
+           "SHADE_MAP_TEX_KERNEL", "SHADE_MAX_MATERIALS"]

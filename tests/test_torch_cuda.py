@@ -71,7 +71,13 @@ from octree_raymarcher_tpu_torch.shade import (
     shade_hits_plain,
 )
 from octree_raymarcher_tpu_torch.shade import shadow as S
-from octree_raymarcher_tpu_torch.shade.render import SHADE_KERNEL, SHADE_MAP_KERNEL
+from octree_raymarcher_tpu_torch.ops.march import MarchResult
+from octree_raymarcher_tpu_torch.shade.render import (
+    SHADE_KERNEL,
+    SHADE_MAP_KERNEL,
+    SHADE_MAP_TEX_KERNEL,
+    SHADE_TEX_KERNEL,
+)
 from octree_raymarcher_tpu_torch.world.alloc import (
     CHUNK_BMIN,
     CHUNK_TREE,
@@ -88,7 +94,7 @@ from octree_raymarcher_tpu_torch.world.alloc import (
 from octree_raymarcher_tpu_torch.world.device import TorchWorld
 from octree_raymarcher_tpu_torch.world.world import World
 
-from test_torch_scenes import SCENES, scene_rays, scene_torch
+from test_torch_scenes import SCENES, scene_rays, scene_torch, shade_batch, warp_kinds
 
 pytestmark = pytest.mark.cuda
 
@@ -148,10 +154,11 @@ def test_shade_kernel_matches_plain(gpu_scene, textured):
         kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)).cuda(),
                   envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
     lights, mats, cfg = LightRig.default(), MaterialTable.default(), RenderConfig()
-    before = SHADE_KERNEL.launches
+    kernel = SHADE_TEX_KERNEL if textured else SHADE_KERNEL
+    before = kernel.launches
     got = shade_hits(res, o, d, eye, lights, mats, cfg, **kw)
     ref = shade_hits_plain(res, o, d, eye, lights, mats, cfg, **kw)
-    assert SHADE_KERNEL.launches == before + 1
+    assert kernel.launches == before + 1
     for k in ("rgb", "depth", "point", "normal"):
         torch.testing.assert_close(got[k], ref[k], rtol=1e-4, atol=1e-5, msg=k)
 
@@ -213,9 +220,11 @@ def test_map_shade_kernel_matches_split(gpu_scene, textured):
     shadowed = 0.0
     for resolution in ((512, 512), (256, 200)):
         smap = S.render_shadowmap(world, lights, resolution=resolution)
-        before = (SHADE_KERNEL.launches, SHADE_MAP_KERNEL.launches)
+        kernel = SHADE_MAP_TEX_KERNEL if textured else SHADE_MAP_KERNEL
+        before = (SHADE_KERNEL.launches, SHADE_TEX_KERNEL.launches, kernel.launches)
         fused = shade_hits(res, o, d, eye, lights, mats, cfg, shadowmap=smap, **kw)
-        assert (SHADE_KERNEL.launches, SHADE_MAP_KERNEL.launches) == (before[0], before[1] + 1)
+        assert (SHADE_KERNEL.launches, SHADE_TEX_KERNEL.launches,
+                kernel.launches) == (before[0], before[1], before[2] + 1)
         factor = S.map_project(res, o, d, smap[0], S.host_vp(smap[1]), cfg.shadow_bias)
         split = shade_hits(res, o, d, eye, lights, mats, cfg, shadow_factor=factor, **kw)
         for k in ("rgb", "depth", "point", "normal"):
@@ -225,6 +234,80 @@ def test_map_shade_kernel_matches_split(gpu_scene, textured):
             torch.testing.assert_close(fused[k], ref[k], rtol=1e-4, atol=1e-5, msg=k)
         shadowed += float(factor.sum())
     assert shadowed > 0
+
+
+def _warp_batch(textured: bool, tables: str):
+    """The warp-group batch of test_torch_shade.py on the card, with the
+    light rig and material table on the host or (table and eye) on the card."""
+    res, o, d, eye = shade_batch()
+    assert min(warp_kinds(res["hit"]).values()) >= 4
+    dev = torch.device("cuda")
+    tres = MarchResult(**{k: torch.from_numpy(v).to(dev) for k, v in res.items()})
+    mats = MaterialTable.default(device=dev if tables == "card" else "cpu")
+    eye = torch.from_numpy(eye).to(dev) if tables == "card" else eye
+    kw = {}
+    if textured:
+        kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)[:5]).to(dev),
+                  envmap=torch.from_numpy(default_envmap(32, 64)).to(dev))
+    return (tres, torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev), eye,
+            LightRig.default(), mats, kw)
+
+
+@pytest.mark.parametrize("tables", ["host", "card"])
+@pytest.mark.parametrize("textured", [False, True], ids=["plain", "atlas5_env"])
+def test_shade_kernel_warp_groups(gpu_scene, textured, tables):
+    """K2 against its plain version on warps that are all hit, all miss and
+    mixed, with the tables on the host (by value) or on the card (by
+    pointer); one launch of the instantiation the inputs pick."""
+    res, o, d, eye, lights, mats, kw = _warp_batch(textured, tables)
+    cfg = RenderConfig(sky=(0.1, 0.2, 0.3))
+    kernel = SHADE_TEX_KERNEL if textured else SHADE_KERNEL
+    before = kernel.launches
+    got = shade_hits(res, o, d, eye, lights, mats, cfg, **kw)
+    assert kernel.launches == before + 1
+    ref = shade_hits_plain(res, o, d, torch.as_tensor(eye).cuda(), lights, mats, cfg, **kw)
+    for k in ("rgb", "depth", "point", "normal"):
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-4, atol=1e-5, msg=k)
+
+
+@pytest.mark.parametrize("tables", ["host", "card"])
+def test_map_shade_kernel_warp_groups_match_split(gpu_scene, tables):
+    """The map-shadowed textured K2 on the warp-group batch equals K2 fed
+    map_project's factor bit for bit."""
+    world = gpu_scene[0]
+    res, o, d, eye, lights, mats, kw = _warp_batch(True, tables)
+    cfg = RenderConfig(shadow="map")
+    smap = S.render_shadowmap(world, lights, resolution=(256, 256))
+    fused = shade_hits(res, o, d, eye, lights, mats, cfg, shadowmap=smap, **kw)
+    factor = S.map_project(res, o, d, smap[0], S.host_vp(smap[1]), cfg.shadow_bias)
+    split = shade_hits(res, o, d, eye, lights, mats, cfg, shadow_factor=factor, **kw)
+    for k in ("rgb", "depth", "point", "normal"):
+        torch.testing.assert_close(fused[k], split[k], rtol=0, atol=0, msg=k)
+
+
+def test_shade_hits_host_tables_upload_nothing(gpu_scene):
+    """A shade_hits call whose eye, light rig and material table are on the
+    host launches K2 once and copies nothing to the card: they travel in
+    the kernel's parameter block."""
+    from torch.profiler import ProfilerActivity, profile
+
+    world, o, d, _, _ = gpu_scene
+    res = march(world, o, d, max_steps=512, device="cuda")
+    atlas = torch.from_numpy(default_atlas(resolution=16)).cuda()
+    envmap = torch.from_numpy(default_envmap(32, 64)).cuda()
+    args = (res, o, d, np.float32([32.0, 30.0, -20.0]), LightRig.default(),
+            MaterialTable.default(), RenderConfig())
+    shade_hits(*args, atlas=atlas, envmap=envmap)
+    torch.cuda.synchronize()
+    before = SHADE_TEX_KERNEL.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        shade_hits(*args, atlas=atlas, envmap=envmap)
+        torch.cuda.synchronize()
+    assert SHADE_TEX_KERNEL.launches == before + 1
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("shade_kernel" in x for x in names) == 1, names
+    assert not any("HtoD" in x for x in names), names
 
 
 def _light_depth_exact(world, o, d, vp, resident):

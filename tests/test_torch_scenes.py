@@ -136,6 +136,51 @@ def scene_rays(name: str):
     return np.concatenate([co, ro]), np.concatenate([cd, rd])
 
 
+def shade_batch(seed: int = 3, groups: int = 12):
+    """A march result built to hold the shading kernel's branches apart:
+    ``groups`` whole 32-ray warps (in launch order) that are in turn all
+    hit, all miss and mixed.  Each hit point lies on a face of its cell (so
+    the atlas sample reads a texel off that face); material ids include 0,
+    the table's last row (7), ids past it (8, 11) and negative ones, and
+    misses carry an infinite t and arbitrary ids, which shading must not
+    read.  Returns numpy arrays: the MarchResult's fields, origins, dirs and
+    the eye."""
+    rng = np.random.default_rng(seed)
+    n = 32 * groups
+    hit = np.zeros(n, bool)
+    for g in range(groups):
+        kind = g % 3
+        if kind == 0:
+            hit[32 * g:32 * g + 32] = True
+        elif kind == 2:
+            hit[32 * g:32 * g + 32] = rng.uniform(size=32) < 0.5
+            hit[32 * g] = True
+            hit[32 * g + 1] = False
+    size = rng.choice(np.float32([0.5, 1.0, 2.0]), n)
+    bmin = (rng.integers(-20, 20, (n, 3)) * size[:, None]).astype(np.float32)
+    face = rng.integers(0, 6, n)
+    p = bmin + rng.uniform(0.02, 0.98, (n, 3)).astype(np.float32) * size[:, None]
+    rows = np.arange(n)
+    p[rows, face // 2] = bmin[rows, face // 2] + (face % 2) * size
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t = rng.uniform(2.0, 60.0, n).astype(np.float32)
+    o = (p - d * (t - np.float32(1.0 / 4096.0))[:, None]).astype(np.float32)
+    res = {"hit": hit, "t": np.where(hit, t, np.float32(np.inf)).astype(np.float32),
+           "material": rng.choice(np.int32([0, 1, 2, 4, 6, 7, 8, 11, -1, -5]), n),
+           "cell_bmin": bmin, "cell_size": size.astype(np.float32),
+           "steps": np.zeros(n, np.int32), "texel": np.full(n, -1, np.int32)}
+    eye = rng.uniform(-5.0, 5.0, 3).astype(np.float32)
+    return res, o, d, eye
+
+
+def warp_kinds(hit) -> dict:
+    """The count of all-hit, all-miss and mixed 32-ray warps of a hit mask."""
+    w = np.asarray(hit).reshape(-1, 32)
+    return {"all_hit": int(w.all(axis=1).sum()), "all_miss": int((~w.any(axis=1)).sum()),
+            "mixed": int((w.any(axis=1) & ~w.all(axis=1)).sum())}
+
+
 def _march(name, **kw):
     o, d = (torch.from_numpy(x) for x in scene_rays(name))
     return march_plain(scene_torch(name), o, d, 512, True, **kw)
