@@ -57,11 +57,17 @@ order, and then:
      frames with ray shadows, the atlas and the sky map: 4 edits at the
      picked cursor, one LOD swap and one streaming shift, each one batch
      patched by the pool-patch kernel K7 (counters zeroed just before, read
-     just after).  After every batch a CPU mirror of the pools takes the
-     same batch through patch_plain and must equal the card's pools word
-     for word; the final frame must match one rendered from a fresh pack of
-     the same chunks; then K7, its plain version and the slice copies are
-     timed on each batch, and the saved world is loaded back.
+     just after; K7 launched once per launch group of each batch's rows).
+     After every batch a CPU mirror of the pools takes the same batch
+     through patch_plain and must equal the card's pools word for word, and
+     apply's host time is printed split (plan, grow, check, staging buffer,
+     fill, copy and launch enqueue); the final frame must match one rendered
+     from a fresh pack of the same chunks, and the saved world is loaded
+     back.  Then K7 is timed on each batch as device time in a CUDA graph,
+     with the staged words rotated past the L2 and reused, beside a graph of
+     as many one-element add_ launches (the launch floor) and its bound; and
+     a launch with its rows in the smallest and in the largest parameter
+     block.
  12. the ray-sharded paths of octree_raymarcher_tpu_torch/parallel/ on a
      one-rank NCCL process group (cuda:0; no exchange between cards is
      exercised on one card): render_frame_sharded (in one group, and in the
@@ -86,8 +92,8 @@ for the textured instantiations the distinct atlas texels and sky-map taps
 the frame reads and the sky's and the atlas decode's operations.
 
 Phase 1 prints the card's name and power limit (nvidia-smi) and ptxas's
-registers, shared memory and spills for every instantiation of K1, K2 and
-K4.  Every phase prints its
+registers, shared memory and spills for every instantiation of K1, K2, K4
+and K7.  Every phase prints its
 lines; any failure raises and the script exits nonzero without printing a
 result.  The line before the last is a JSON object with one entry per
 kernel and per instantiation of K2 (times, launches and the path that made
@@ -260,7 +266,7 @@ def ptxas_report(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for tag in ("march_kernel", "segments_kernel", "shade_kernel"):
+            for tag in ("march_kernel", "segments_kernel", "shade_kernel", "patch_kernel"):
                 if tag in name:
                     args = re.findall(r"L[bi](\d+)E", name.split(tag, 1)[1])
                     name = f"{tag}<{','.join(args)}>"
@@ -430,10 +436,16 @@ def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080)
     from octree_raymarcher_tpu_torch.demo import run_session
     from octree_raymarcher_tpu_torch.shade import PerspectiveCamera, RenderConfig, render_frame
     from octree_raymarcher_tpu_torch.world.alloc import (
+        PATCH_KERNEL,
+        PIECE_WORDS,
+        ROW_CAPS,
+        TWIG,
         WorldAllocator,
+        kernel_pointers,
+        launch_groups,
+        pack_rows,
         patch,
         patch_plain,
-        stage,
     )
     from octree_raymarcher_tpu_torch.world.device import TorchWorld
     from octree_raymarcher_tpu_torch.world.world import World
@@ -445,10 +457,17 @@ def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080)
     mirror = TorchWorld.from_numpy(ew.to_numpy(), device="cpu")
     pool_names = ("tree", "twig", "twig_occ", "chunk_bmin", "chunk_tree", "chunk_twig")
     batch_log = []
+    seen = [0]
 
     def mirror_batch(kind, batch, ew_now):
         """The CPU mirror takes the same batch through patch_plain; every
-        pool word and chunk-table entry must equal the card's."""
+        pool word and chunk-table entry must equal the card's, and K7 must
+        have launched once per launch group of the batch's rows."""
+        launched = read_counts()["patch"] - seen[0]
+        seen[0] += launched
+        if launched != len(launch_groups(batch.desc.shape[0])):
+            fail(f"K7 launched {launched} times for a {kind} batch of {batch.desc.shape[0]} "
+                 f"rows, not once per launch group")
         for k in ("tree", "twig", "twig_occ"):
             t, ref = getattr(mirror, k), getattr(ew_now, k)
             if t.numel() < ref.numel():
@@ -464,7 +483,7 @@ def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080)
             err = max(err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
         coordmin = torch.as_tensor(w.chunkcoordmin, dtype=torch.float32)
         bad["chunkcoordmin"] = int((ew_now.chunkcoordmin.cpu() != coordmin).sum())
-        batch_log.append((kind, batch, err))
+        batch_log.append((kind, batch, err, launched))
         if any(bad.values()):
             fail(f"K7 disagrees with patch_plain after the {kind} batch: {bad}")
 
@@ -476,19 +495,25 @@ def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080)
     session_launches = {k: v for k, v in read_counts().items() if v}
     ew = session["world"]
     kinds = [k for k, _, _ in session["batches"]]
-    if read_counts()["patch"] != len(kinds) or len(batch_log) != len(kinds):
-        fail(f"K7 launches {read_counts()['patch']} != batches {len(kinds)}")
+    if len(batch_log) != len(kinds) or read_counts()["patch"] != sum(b[3] for b in batch_log):
+        fail(f"K7 launches {read_counts()['patch']} do not add up over the batches {kinds}")
     if kinds.count("lod") != 1 or kinds.count("shift") != 1 or kinds.count("edit") < 1:
         fail(f"the session's batches are {kinds}: want edits, one lod and one shift")
     for k in ("march", "ray_prep", "shade textured"):
         if read_counts()[k] == 0:
             fail(f"kernel {k} was not launched by the session's frames")
-    for (kind, batch, apply_s), (_, _, err) in zip(session["batches"], batch_log):
-        print(f"phase 11 batch {kind}: {batch.chunks} chunks, {batch.desc.shape[0]} descriptors, "
-              f"{batch.words_written} words written; apply {apply_s * 1e3:.3f} ms by host "
-              f"clock (bookkeeping {batch.plan_s * 1e3:.3f}, growth {batch.grow_s * 1e3:.3f}, "
-              f"staging + H2D enqueue {batch.stage_s * 1e3:.3f}); K7 vs patch_plain: every "
-              f"word equal (max abs err {err})", flush=True)
+    for (kind, batch, apply_s), (_, _, err, launched) in zip(session["batches"], batch_log):
+        split = {"plan": batch.plan_s, "grow": batch.grow_s, "check": batch.check_s,
+                 "pinned wait + growth": batch.alloc_s, "fill": batch.fill_s,
+                 "copy enqueue": batch.copy_s, "launch enqueue": batch.launch_s}
+        split["rest (synchronize)"] = apply_s - sum(split.values())
+        print(f"phase 11 batch {kind}: {batch.chunks} chunks, {batch.desc.shape[0]} rows "
+              f"(by target {np.bincount(batch.desc[:, 0], minlength=5).tolist()}, longest "
+              f"{int(batch.desc[:, 3].max())} of {PIECE_WORDS}), {batch.words.size} stream "
+              f"words, {batch.words_written} words written, {launched} K7 launch(es); apply "
+              f"{apply_s * 1e3:.4f} ms by host clock, split (ms) "
+              f"{ {k: round(v * 1e3, 4) for k, v in split.items()} }; K7 vs patch_plain: "
+              f"every word equal (max abs err {err})", flush=True)
     print(f"phase 11 session: pack {t_pack:.2f} s; {len(kinds)} batches {kinds}; ms per frame "
           f"(render + synchronize) {[round(x * 1e3, 3) for x in session['frame_s']]}; pick "
           f"{[round(x * 1e3, 1) for x in session['pick_s']]} ms; lod {session['lod_s']:.3f} s; "
@@ -526,42 +551,57 @@ def phase_session(w, dev, atlas, env, zero_counts, read_counts, res=(1920, 1080)
             fail("the saved world does not load back equal")
     print(f"phase 11 load: {load_s:.3f} s, {len(loaded.chunks)} chunks equal", flush=True)
 
-    # K7, its plain version and the slice copies alone, on each batch of the
-    # session, replayed onto a copy of the final pools
+    # K7 and its plain version alone on each batch of the session, replayed
+    # onto a copy of the final pools: K7's device time in a CUDA graph with
+    # the staged words rotated past the L2 (cold) and reused (warm), beside
+    # a graph of as many launches of a one-element add_ (the launch floor);
+    # the bound counts the words read and written and the occupancy words
     scratch = dataclasses.replace(ew, **{k: getattr(ew, k).clone() for k in pool_names})
-
-    def copies(staged, desc):
-        """The plain version's slice copy_s alone (no occupancy)."""
-        tg = (scratch.tree, scratch.twig, scratch.chunk_bmin.view(torch.int32).view(-1),
-              scratch.chunk_tree, scratch.chunk_twig)
-        words = staged[8 * len(desc):]
-        for tgt, dst, src, cnt in desc:
-            tg[tgt][dst:dst + cnt].copy_(words[src:src + cnt])
-
+    one = torch.zeros(1, device=dev)
     patch_rows = []
     for kind, batch, _ in session["batches"]:
-        r = batch.desc.shape[0]
-        staged = stage(batch, dev)
-        rows = batch.desc.tolist()
-        desc_t = torch.from_numpy(batch.desc)
-        k7 = cuda_ms(lambda: patch(scratch, staged, r), TIMED_ITERS)
-        plain = cuda_ms(lambda: patch_plain(scratch, desc_t, staged[8 * r:]), 3)
-        lib = cuda_ms(lambda: copies(staged, rows), 3)
-        h2d = cuda_ms(lambda: stage(batch, dev), 5)
-        k7_dev = graph_ms(lambda: patch(scratch, staged, r), TIMED_ITERS)
-        n_occ = int(batch.desc[batch.desc[:, 0] == 1, 3].sum()) // 32
-        nbytes = 32 * r + 8 * batch.words.size + 4 * n_occ
-        patch_rows.append((k7, plain, lib, bound_ms(nbytes, 0.0)[0]))
-        print(f"phase 11 K7 on the {kind} batch: {k7:.4f} ms per call by CUDA events over "
-              f"{TIMED_ITERS} calls, {k7_dev:.5f} ms per launch in a CUDA graph of "
-              f"{TIMED_ITERS}; plain {plain:.3f} ms, slice copies {lib:.3f} ms, staging + H2D "
-              f"{h2d:.3f} ms; bound {patch_rows[-1][3]:.5f} ms ({nbytes} bytes)", flush=True)
-    del scratch
-    k7_ms, k7_plain, k7_lib, k7_bound = (float(np.mean(c)) for c in zip(*patch_rows))
-    return {"launches": session_launches["patch"], "err": float(max(e for _, _, e in batch_log)),
-            "ms": k7_ms, "plain_ms": k7_plain, "library_ms": k7_lib, "bound_ms": k7_bound,
-            "shade_launches": session_launches["shade textured"]}
+        desc = batch.desc
+        staged = wa.stage(batch, dev)
+        desc_t = torch.from_numpy(desc)
+        n_launch = len(launch_groups(desc.shape[0]))
+        loop = cuda_ms(lambda: patch(scratch, desc, staged), TIMED_ITERS)
+        plain = cuda_ms(lambda: patch_plain(scratch, desc_t, staged), 3)
+        h2d = cuda_ms(lambda: wa.stage(batch, dev), 5)
+        warm = graph_ms(lambda: patch(scratch, desc, staged), TIMED_ITERS)
+        cold = cold_graph_ms(lambda s: patch(scratch, desc, s), (staged,), TIMED_ITERS)
+        floor = graph_ms(lambda: [one.add_(1) for _ in range(n_launch)], TIMED_ITERS)
+        lengths = desc[:, 3]
+        nbytes = 8 * int(lengths.sum()) + 4 * (int(lengths[desc[:, 0] == TWIG].sum()) // 32)
+        bound = bound_ms(nbytes, 0.0)[0]
+        patch_rows.append((cold, plain, bound))
+        print(f"phase 11 K7 on the {kind} batch: {cold:.5f} ms a batch in a cold CUDA graph, "
+              f"{warm:.5f} warm, launch floor {floor:.5f} ({n_launch} add_ launch(es)); bound "
+              f"{bound:.5f} ms ({nbytes} bytes), {bound / cold:.3f} of it; loop of "
+              f"{TIMED_ITERS} calls {loop:.4f} ms a call; staging + H2D {h2d:.4f} ms a call; "
+              f"plain {plain:.3f} ms", flush=True)
+    torch.cuda.synchronize()
 
+    # what the parameter block costs a launch: the smallest batch carried in
+    # the smallest and in the largest capacity
+    kind, batch, _ = min(session["batches"], key=lambda b: b[1].desc.shape[0])
+    staged = wa.stage(batch, dev)
+    rows = pack_rows(batch.desc)
+    ptrs = kernel_pointers(scratch, staged)
+    cost = {}
+    for cap in (ROW_CAPS[0], ROW_CAPS[-1]):
+        def launch(cap=cap):
+            PATCH_KERNEL(*ptrs, rows.ctypes.data, rows.shape[0], cap)
+        cost[cap] = (graph_ms(launch, TIMED_ITERS), cuda_ms(launch, TIMED_ITERS))
+    torch.cuda.synchronize()
+    print(f"phase 11 K7 parameter block ({kind} batch, {rows.shape[0]} rows): "
+          + "; ".join(f"{cap} rows ({16 * cap} bytes) {g:.5f} ms a launch in a warm graph, "
+                      f"{lp:.4f} ms a call in a loop" for cap, (g, lp) in cost.items()),
+          flush=True)
+    del scratch
+    k7_ms, k7_plain, k7_bound = (float(np.mean(c)) for c in zip(*patch_rows))
+    return {"launches": session_launches["patch"], "err": float(max(b[2] for b in batch_log)),
+            "ms": k7_ms, "plain_ms": k7_plain, "bound_ms": k7_bound,
+            "shade_launches": session_launches["shade textured"]}
 
 
 class RecordingAdam(torch.optim.Adam):
@@ -911,7 +951,8 @@ def main() -> int:
     print(f"phase 1 build: {time.time() - t0:.2f} s, {kind}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}; ptxas: {regs}", flush=True)
     for name, info in ptxas_report(kernels.build_log()).items():
-        if any(k in name for k in ("march_kernel", "segments_kernel", "shade_kernel")):
+        if any(k in name for k in ("march_kernel", "segments_kernel", "shade_kernel",
+                                   "patch_kernel")):
             print(f"phase 1 ptxas {name}: {info}", flush=True)
 
     # ---- 2. bench world: generate, pack, upload -----------------------------
@@ -1661,12 +1702,12 @@ def main() -> int:
               "fit", fit_launches["composite_fwd"], fwd_err, fwd_ms, fwd_plain_ms, b_fwd),
         entry("composite_bwd", "composite.cu", "octree_raymarcher_tpu/diff/composite.py:89",
               "fit", fit_launches["composite_bwd"], bwd_err, bwd_ms, bwd_plain_ms, b_bwd),
-        # per batch, the mean over the session's batches; library_ms: the
-        # plain version's slice copy_s alone (no single PyTorch call
-        # computes the batch)
+        # device ms a batch in a cold CUDA graph, the mean over the session's
+        # batches; no single PyTorch call writes the five arrays and derives
+        # the occupancy words, so no library time
         entry("patch", "patch.cu", "octree_raymarcher_tpu/world/alloc.py:167",
               "session", k7["launches"], k7["err"], k7["ms"], k7["plain_ms"],
-              (k7["bound_ms"], "bytes"), k7["library_ms"]),
+              (k7["bound_ms"], "bytes")),
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -48,7 +48,7 @@ SIGNATURES = {
     "ort_segments": _WORLD + [_P, _P, _I64] + [_I] * 9 + [_P] * 4 + [_P],
     "ort_composite_fwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I] + [_P] * 4 + [_P],
     "ort_composite_bwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I, _I64] + [_P] * 8 + [_P],
-    "ort_patch": [_P] * 7 + [_I64, _I64] + [_P],
+    "ort_patch": [_P] * 8 + [_I, _I] + [_P],
 }
 
 _lock = threading.Lock()

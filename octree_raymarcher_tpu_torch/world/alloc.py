@@ -11,13 +11,16 @@ pools bit-identical to the JAX package's ``WorldAllocator.pack``.
 The device half replaces the JAX package's per-range donated
 ``dynamic_update_slice`` programs (``_patch``/``_patch_blend``, B8).  An edit
 batch is planned on the host first: the bookkeeping of every chunk, in the
-batch's order, then one table of descriptors (target array, destination
-word, source word, length) over one stream of words.  The pools grow once,
-to the batch's final capacity; the table and the words go to the card in one
-pinned, non-blocking copy; and one launch of K7 (``csrc/patch.cu``) writes
-every range, deriving each twig's occupancy words from the twig words it
-writes.  On a CPU world :func:`patch_plain` does the same with slice
-assignments.  The pools are updated in place (the JAX package donates them).
+batch's order, then rows (target array, destination word, source word,
+length) over one stream of words, laid out for K7 (:func:`layout`: pieces of
+at most PIECE_WORDS, each source congruent to its destination mod 4).  The
+pools grow once, to the batch's final capacity; the words go to the card
+through one pinned buffer the allocator owns, in one non-blocking copy; and
+K7 (``csrc/patch.cu``) writes every range with the rows in its launch's
+parameter block, one launch per ROW_CAPS[-1] rows, deriving each twig's
+occupancy words from the twig words it writes.  On a CPU world
+:func:`patch_plain` does the same with slice assignments.  The pools are
+updated in place (the JAX package donates them).
 
 Every chunk's writes in a batch carry its final host content to its final
 block (a chunk named twice keeps the block its first placement chose, since
@@ -43,13 +46,17 @@ from .device import PackedWorld, TorchWorld, occupancy_masks, resolve_device
 
 PATCH_KERNEL = Kernel("ort_patch")
 
-# Target arrays of a patch descriptor (csrc/patch.cu enum Target).
+# Target arrays of a patch row (csrc/patch.cu enum Target).
 TREE, TWIG, CHUNK_BMIN, CHUNK_TREE, CHUNK_TWIG = range(5)
-# The longest range one K7 block copies (a multiple of TWIG_WORDS): longer
-# ranges are cut on the host so that even a one-chunk batch spreads over
-# many SMs (a block's copy loop is latency-bound: ~8 KB per block keeps it
-# to a few microseconds).
+# The longest range one K7 block copies (csrc/patch.cu kPieceWords, a
+# multiple of its 4 * 256 threads): each thread holds two int4 words of a
+# piece in flight, and a one-chunk edit still spreads over dozens of SMs.
 PIECE_WORDS = 2048
+# The row capacities of K7's parameter block (csrc/patch.cu kRowCaps): a
+# launch carries the smallest that holds its rows (1, 8 or 32 KB).
+ROW_CAPS = (64, 512, 2044)
+VEC_WORDS = 4                       # words in one 16-byte load of K7
+INT32_MAX = np.iinfo(np.int32).max
 
 
 class FreeList:
@@ -181,18 +188,24 @@ class PatchBatch:
     """The pool writes of one edit batch.
 
     ``desc`` int64[R, 4] rows are (target array, destination word, source
-    word, length) over the int32 ``words``; chunk_bmin is addressed as the
-    int32 bits of its float32[V*3].  A TWIG row starts and ends on a twig
-    boundary, and its occupancy words are derived from the words it writes.
-    The ``*_s`` fields are host seconds of :meth:`WorldAllocator.modify_batch`'s
-    steps."""
+    word, length) over the int32 ``words``, laid out by :func:`layout`;
+    chunk_bmin is addressed as the int32 bits of its float32[V*3].  A TWIG
+    row starts and ends on a twig boundary, and its occupancy words are
+    derived from the words it writes.  The ``*_s`` fields are host seconds of
+    :meth:`WorldAllocator.modify_batch`'s steps: plan, grow, check_batch, the
+    staging buffer's wait and growth (``alloc_s``), its fill, the copy's
+    enqueue and K7's launch enqueue."""
 
     desc: np.ndarray
     words: np.ndarray
     chunks: int
     plan_s: float = 0.0
     grow_s: float = 0.0
-    stage_s: float = 0.0
+    check_s: float = 0.0
+    alloc_s: float = 0.0
+    fill_s: float = 0.0
+    copy_s: float = 0.0
+    launch_s: float = 0.0
 
     @property
     def words_written(self) -> int:
@@ -212,10 +225,42 @@ def _union(ranges):
     return out
 
 
-def _pieces(n: int):
-    """(offset into a range of ``n`` words, length) pieces of at most
-    PIECE_WORDS."""
-    return [(k, min(PIECE_WORDS, n - k)) for k in range(0, n, PIECE_WORDS)]
+def layout(ranges) -> tuple[np.ndarray, np.ndarray]:
+    """K7's rows and word stream for ``ranges`` [(target, dst, int32
+    words)]: each range is cut into pieces of at most PIECE_WORDS, and its
+    words start at a source congruent to ``dst`` mod 4 (mod TWIG_WORDS on
+    the twig pool, whose ranges start on a twig), zero words padding the
+    stream in between that no row covers."""
+    desc, segs, src = [], [], 0
+    for target, dst, seg in ranges:
+        pad = (dst - src) % (TWIG_WORDS if target == TWIG else VEC_WORDS)
+        if pad:
+            segs.append(np.zeros(pad, np.int32))
+            src += pad
+        desc += [(target, dst + k, src + k, min(PIECE_WORDS, seg.size - k))
+                 for k in range(0, seg.size, PIECE_WORDS)]
+        segs.append(seg)
+        src += seg.size
+    return (np.asarray(desc, dtype=np.int64).reshape(-1, 4),
+            np.concatenate(segs) if segs else np.zeros(0, np.int32))
+
+
+def launch_groups(n_rows: int) -> list[tuple[int, int, int]]:
+    """(first row, end row, row capacity) of each K7 launch of a batch of
+    ``n_rows`` rows: ROW_CAPS[-1] rows a launch, each carried by the
+    smallest capacity that holds them."""
+    return [(lo, min(n_rows, lo + ROW_CAPS[-1]),
+             next(c for c in ROW_CAPS if c >= min(n_rows - lo, ROW_CAPS[-1])))
+            for lo in range(0, n_rows, ROW_CAPS[-1])]
+
+
+def pack_rows(desc: np.ndarray) -> np.ndarray:
+    """The rows as K7 takes them in its parameter block: C-contiguous
+    int32[R, 4] (target, dst, src, length), 16 bytes a row."""
+    rows = np.ascontiguousarray(desc, dtype=np.int32)
+    if not np.array_equal(rows, desc):
+        raise ValueError("patch rows must fit int32 (check_batch)")
+    return rows
 
 
 def occupancy_words(twig_words: torch.Tensor) -> torch.Tensor:
@@ -232,18 +277,23 @@ def _targets(world: TorchWorld) -> tuple:
 
 
 def check_batch(world: TorchWorld, desc: np.ndarray, n_words: int) -> None:
-    """Raise unless every descriptor lies inside its target and the word
-    stream, and every TWIG row covers whole twigs."""
+    """Raise unless every row fits int32, lies inside its target and the
+    word stream, is at most PIECE_WORDS long with its source congruent to
+    its destination mod 4, and covers whole twigs on the twig pool."""
     if desc.ndim != 2 or desc.shape[1] != 4 or desc.dtype != np.int64:
         raise ValueError(f"descriptors must be int64[R, 4], got {desc.dtype}{desc.shape}")
     tgt, dst, src, n = desc.T
+    if ((dst + n > INT32_MAX) | (src + n > INT32_MAX)).any():
+        raise ValueError("patch rows must fit int32: a row ends past 2**31 - 1")
     sizes = np.asarray([t.numel() for t in _targets(world)], dtype=np.int64)
     if ((tgt < 0) | (tgt >= len(sizes))).any():
         raise ValueError("descriptor names an unknown target array")
-    bad = (n <= 0) | (dst < 0) | (src < 0) | (dst + n > sizes[tgt]) | (src + n > n_words)
+    bad = (n <= 0) | (n > PIECE_WORDS) | (dst < 0) | (src < 0)
+    bad |= (dst + n > sizes[tgt]) | (src + n > n_words)
+    bad |= (src - dst) % VEC_WORDS != 0
     bad |= (tgt == TWIG) & ((dst % TWIG_WORDS != 0) | (n % TWIG_WORDS != 0))
     if bad.any():
-        raise ValueError(f"descriptor out of bounds: {desc[bad][0].tolist()}")
+        raise ValueError(f"descriptor out of bounds or out of layout: {desc[bad][0].tolist()}")
 
 
 def patch_plain(world: TorchWorld, desc: torch.Tensor, words: torch.Tensor) -> None:
@@ -257,33 +307,30 @@ def patch_plain(world: TorchWorld, desc: torch.Tensor, words: torch.Tensor) -> N
             world.twig_occ[dst // 32:(dst + n) // 32] = occupancy_words(seg)
 
 
-def stage(batch: PatchBatch, device: torch.device) -> torch.Tensor:
-    """The descriptors (as int32 pairs) then the words, in one int32 tensor
-    on ``device``: for a GPU, one pinned host tensor per batch and one
-    non-blocking copy on the current stream.  A fresh pinned tensor per batch
-    (PyTorch's host allocator holds it until the copy has run) keeps a later
-    batch from overwriting one whose copy is still in flight."""
-    head = batch.desc.reshape(-1).view(np.int32)
-    host = torch.empty(head.size + batch.words.size, dtype=torch.int32,
-                       pin_memory=device.type == "cuda")
-    h = host.numpy()
-    h[:head.size] = head
-    h[head.size:] = batch.words
-    return host.to(device, non_blocking=True)
-
-
-def patch(world: TorchWorld, staged: torch.Tensor, n_desc: int) -> None:
-    """Apply a staged batch to ``world``'s pools in place: K7 on a CUDA
-    world, :func:`patch_plain` on a CPU one."""
-    if staged.device != world.device or staged.dtype != torch.int32:
-        raise ValueError(f"staged batch must be int32 on {world.device}")
-    if not world.tree.is_cuda:
-        patch_plain(world, staged[:8 * n_desc].view(torch.int64).view(-1, 4),
-                    staged[8 * n_desc:])
-        return
+def kernel_pointers(world: TorchWorld, staged: torch.Tensor) -> list[int]:
+    """K7's pool and word pointers, in its C entry's order; raises unless
+    each lies on a 16-byte boundary."""
     tree, twig, bmin, ctree, ctwig = _targets(world)
-    PATCH_KERNEL(ptr(tree), ptr(twig), ptr(world.twig_occ), ptr(bmin), ptr(ctree), ptr(ctwig),
-                 ptr(staged), n_desc, 8 * n_desc)
+    ptrs = [ptr(t) for t in (tree, twig, world.twig_occ, bmin, ctree, ctwig, staged)]
+    if any(p % 16 for p in ptrs):
+        raise ValueError("K7 needs its pools and words on 16-byte boundaries")
+    return ptrs
+
+
+def patch(world: TorchWorld, desc: np.ndarray, staged: torch.Tensor) -> None:
+    """Apply a batch's rows ``desc`` over its ``staged`` words to
+    ``world``'s pools in place: K7 on a CUDA world, its rows packed into
+    each launch (:func:`launch_groups`), :func:`patch_plain` on a CPU one."""
+    if (staged.device != world.device or staged.dtype != torch.int32
+            or not staged.is_contiguous()):
+        raise ValueError(f"staged words must be contiguous int32 on {world.device}")
+    if not world.tree.is_cuda:
+        patch_plain(world, torch.from_numpy(desc), staged)
+        return
+    rows = pack_rows(desc)
+    ptrs = kernel_pointers(world, staged)
+    for lo, hi, cap in launch_groups(rows.shape[0]):
+        PATCH_KERNEL(*ptrs, rows[lo:].ctypes.data, hi - lo, cap)
 
 
 def dev_alias(fn):
@@ -322,6 +369,8 @@ class WorldAllocator:
         self.tree = tree
         self.twig = twig
         self.last_batch: PatchBatch | None = None
+        self._pinned: torch.Tensor | None = None     # the staging buffer
+        self._copied: torch.cuda.Event | None = None  # recorded after its last copy
 
     # -- construction ------------------------------------------------------
     @staticmethod
@@ -408,33 +457,21 @@ class WorldAllocator:
                     out.append((lo, hi))
             final[key] = chunk
 
-        desc, segs, src = [], [], 0
-
-        def emit(target, dst, seg):
-            nonlocal src
-            desc.append((target, dst, src, seg.size))
-            segs.append(seg)
-            src += seg.size
-
+        writes = []
         for key, chunk in final.items():
             t_off = self.tree.blocks[key].offset
             w_off = self.twig.blocks[key].offset
             tr, tw = ranges[key]
-            for lo, hi in _union(tr):
-                for k, n in _pieces(hi - lo):
-                    emit(TREE, t_off + lo + k, chunk.tree[lo + k:lo + k + n].view(np.int32))
-            for lo, hi in _union(tw):
-                words = chunk.twig[lo:hi].astype(np.uint32).reshape(-1).view(np.int32)
-                for k, n in _pieces(words.size):
-                    emit(TWIG, (w_off + lo) * TWIG_WORDS + k, words[k:k + n])
-            emit(CHUNK_BMIN, 3 * key, np.asarray(chunk.position, np.float32).view(np.int32))
-            emit(CHUNK_TREE, key, np.asarray([t_off], np.int32))
-            emit(CHUNK_TWIG, key, np.asarray([w_off], np.int32))
-        return PatchBatch(
-            desc=np.asarray(desc, dtype=np.int64).reshape(-1, 4),
-            words=np.concatenate(segs) if segs else np.zeros(0, np.int32),
-            chunks=len(final),
-        )
+            writes += [(TREE, t_off + lo, chunk.tree[lo:hi].view(np.int32))
+                       for lo, hi in _union(tr)]
+            writes += [(TWIG, (w_off + lo) * TWIG_WORDS,
+                        chunk.twig[lo:hi].astype(np.uint32).reshape(-1).view(np.int32))
+                       for lo, hi in _union(tw)]
+            writes += [(CHUNK_BMIN, 3 * key, np.asarray(chunk.position, np.float32).view(np.int32)),
+                       (CHUNK_TREE, key, np.asarray([t_off], np.int32)),
+                       (CHUNK_TWIG, key, np.asarray([w_off], np.int32))]
+        desc, words = layout(writes)
+        return PatchBatch(desc=desc, words=words, chunks=len(final))
 
     def grow(self, world: TorchWorld) -> TorchWorld:
         """``world`` with its pools at this allocator's capacities (new
@@ -449,10 +486,37 @@ class WorldAllocator:
             twig_occ=_grow_pool(world.twig_occ, self.twig.capacity * 2),
         )
 
+    def stage(self, batch: PatchBatch, device: torch.device) -> torch.Tensor:
+        """``batch.words`` on ``device``.  For a GPU they go through one
+        pinned host buffer that this allocator owns and grows by doubling,
+        in one non-blocking copy on the current stream; before the host
+        writes a batch into the buffer it waits for the event recorded
+        after the previous batch's copy, which may still be reading it.
+        Sets the batch's ``alloc_s``, ``fill_s`` and ``copy_s``."""
+        if device.type != "cuda":
+            return torch.from_numpy(batch.words)
+        t0 = time.perf_counter()
+        n = batch.words.size
+        if self._copied is not None:
+            self._copied.synchronize()
+        if self._pinned is None or self._pinned.numel() < n:
+            size = max(n, 2 * self._pinned.numel()) if self._pinned is not None else n
+            self._pinned = torch.empty(size, dtype=torch.int32, pin_memory=True)
+        t1 = time.perf_counter()
+        self._pinned.numpy()[:n] = batch.words
+        t2 = time.perf_counter()
+        out = torch.empty(n, dtype=torch.int32, device=device)
+        out.copy_(self._pinned[:n], non_blocking=True)
+        if self._copied is None:
+            self._copied = torch.cuda.Event()
+        self._copied.record()
+        batch.alloc_s, batch.fill_s, batch.copy_s = t1 - t0, t2 - t1, time.perf_counter() - t2
+        return out
+
     def modify_batch(self, world: TorchWorld, items) -> TorchWorld:
         """Apply an edit batch [(key, chunk, Dirty tree, Dirty twig)] to
-        ``world``: bookkeeping, one growth, one staging copy and one K7
-        launch (or :func:`patch_plain` on a CPU world).  Returns the world,
+        ``world``: bookkeeping, one growth, one staging copy and K7's
+        launches (or :func:`patch_plain` on a CPU world).  Returns the world,
         whose pools are updated in place unless they grew."""
         t0 = time.perf_counter()
         batch = self.plan(items)
@@ -463,10 +527,12 @@ class WorldAllocator:
         if batch.chunks == 0:
             return world
         check_batch(world, batch.desc, batch.words.size)
-        staged = stage(batch, world.device)
         t3 = time.perf_counter()
-        patch(world, staged, batch.desc.shape[0])
-        batch.plan_s, batch.grow_s, batch.stage_s = t1 - t0, t2 - t1, t3 - t2
+        staged = self.stage(batch, world.device)
+        t4 = time.perf_counter()
+        patch(world, batch.desc, staged)
+        batch.plan_s, batch.grow_s, batch.check_s = t1 - t0, t2 - t1, t3 - t2
+        batch.launch_s = time.perf_counter() - t4
         self.last_batch = batch
         return world
 
@@ -482,5 +548,6 @@ class WorldAllocator:
 
 
 __all__ = ["FreeList", "PoolAllocator", "WorldAllocator", "Block", "PatchBatch",
-           "PATCH_KERNEL", "patch", "patch_plain", "stage", "occupancy_words", "check_batch",
-           "dev_alias"]
+           "PATCH_KERNEL", "PIECE_WORDS", "ROW_CAPS", "check_batch", "dev_alias",
+           "kernel_pointers", "launch_groups", "layout", "occupancy_words", "pack_rows", "patch",
+           "patch_plain"]

@@ -83,13 +83,16 @@ from octree_raymarcher_tpu_torch.world.alloc import (
     CHUNK_TREE,
     CHUNK_TWIG,
     PATCH_KERNEL,
+    PIECE_WORDS,
+    ROW_CAPS,
     TREE,
     TWIG,
     PatchBatch,
     check_batch,
+    launch_groups,
+    layout,
     patch,
     patch_plain,
-    stage,
 )
 from octree_raymarcher_tpu_torch.world.device import TorchWorld
 from octree_raymarcher_tpu_torch.world.world import World
@@ -525,42 +528,81 @@ def _assert_worlds_equal(a: TorchWorld, b: TorchWorld):
         assert torch.equal(x.cpu().view(torch.int32), y.cpu().view(torch.int32)), k
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_patch_kernel_matches_plain(gpu_scene, seed):
-    """K7 against patch_plain on random descriptor sets: twig rows at several
-    64-word offsets (one ending at the pool's end), tree rows (one ending at
-    the pool's end), long rows of many blocks' worth, and chunk-table rows."""
-    rng = np.random.default_rng(seed)
+def _patch_both(ranges):
+    """K7 on a CUDA world and patch_plain on a CPU one, the same batch of
+    ``ranges`` [(target, dst, words)] laid out as plan lays out its own;
+    returns both worlds and K7's launches."""
     w = World.generate(dims=(2, 1, 2), chunksize=32.0, depth=5, seed=7, water_level=4.0,
                        amplitude=16.0)
-    _, gw = w.to_device(device="cuda")
+    ga, gw = w.to_device(device="cuda")
     _, cw = w.to_device(device="cpu")
-    n_twig, n_tree = gw.twig.numel() // 64, gw.tree.numel()
-    rows, words, src = [], [], 0
-
-    def add(target, dst, seg):
-        nonlocal src
-        rows.append((target, dst, src, seg.size))
-        words.append(seg.astype(np.int32))
-        src += seg.size
-
-    twig_starts = sorted(rng.choice(np.arange(40, n_twig - 80, 40), size=5, replace=False))
-    for t0 in [0] + [int(t) for t in twig_starts]:
-        k = int(rng.integers(1, 40))
-        add(TWIG, 64 * t0, (rng.uniform(size=64 * k) < 0.5) * rng.integers(1, 7, 64 * k))
-    add(TWIG, 64 * (n_twig - 3), rng.integers(0, 7, 64 * 3))     # ends at the pool's end
-    add(TREE, n_tree - 9, rng.integers(0, 1 << 31, 9))
-    add(TREE, 17, rng.integers(0, 1 << 31, min(n_tree - 40, 5000)))
-    add(CHUNK_BMIN, 3, np.float32([96.0, -32.0, 64.0]).view(np.int32))
-    add(CHUNK_TREE, 2, np.int32([12345]))
-    add(CHUNK_TWIG, 3, np.int32([678]))
-    batch = PatchBatch(desc=np.asarray(rows, np.int64), words=np.concatenate(words), chunks=0)
+    desc, words = layout([(t, d, np.asarray(seg).astype(np.int32)) for t, d, seg in ranges])
+    batch = PatchBatch(desc=desc, words=words, chunks=0)
     check_batch(gw, batch.desc, batch.words.size)
     before = PATCH_KERNEL.launches
-    patch(gw, stage(batch, gw.device), len(rows))
+    patch(gw, batch.desc, ga.stage(batch, gw.device))
     torch.cuda.synchronize()
-    assert PATCH_KERNEL.launches == before + 1
+    launched = PATCH_KERNEL.launches - before
     patch_plain(cw, torch.from_numpy(batch.desc), torch.from_numpy(batch.words))
+    return gw, cw, launched
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_patch_kernel_matches_plain(gpu_scene, seed):
+    """K7 against patch_plain on random ranges, laid out by layout as
+    plan's are: twig rows at several 64-word offsets (one ending at the
+    pool's end), tree rows (one ending at the pool's end), long rows of many
+    blocks' worth, and chunk-table rows."""
+    rng = np.random.default_rng(seed)
+    _, pools = World.generate(dims=(2, 1, 2), chunksize=32.0, depth=5, seed=7, water_level=4.0,
+                              amplitude=16.0).to_device(device="cpu")
+    n_twig, n_tree = pools.twig.numel() // 64, pools.tree.numel()
+    twig_starts = sorted(rng.choice(np.arange(40, n_twig - 80, 40), size=5, replace=False))
+    ranges = []
+    for t0 in [0] + [int(t) for t in twig_starts]:
+        k = int(rng.integers(1, 40))
+        words = (rng.uniform(size=64 * k) < 0.5) * rng.integers(1, 7, 64 * k)
+        ranges.append((TWIG, 64 * t0, words))
+    ranges += [(TWIG, 64 * (n_twig - 3), rng.integers(0, 7, 64 * 3)),   # ends at the pool's end
+               (TREE, n_tree - 9, rng.integers(0, 1 << 31, 9)),
+               (TREE, 17, rng.integers(0, 1 << 31, min(n_tree - 40, 5000))),
+               (CHUNK_BMIN, 3, np.float32([96.0, -32.0, 64.0]).view(np.int32)),
+               (CHUNK_TREE, 2, np.int32([12345])),
+               (CHUNK_TWIG, 3, np.int32([678]))]
+    gw, cw, launched = _patch_both(ranges)
+    assert launched == 1
+    _assert_worlds_equal(gw, cw)
+
+
+def test_patch_kernel_heads_tails_and_pieces(gpu_scene):
+    """Tree rows at every destination mod 4 with lengths 1-9 (the scalar
+    head and tail around the int4 words), and twig rows that cross piece
+    boundaries, from a twig's start at several offsets."""
+    rng = np.random.default_rng(4)
+    ranges = [(TREE, 40 * (4 * n + k) + 8 + k, rng.integers(-(1 << 31), 1 << 31, n))
+              for k in range(4) for n in range(1, 10)]
+    t0 = 0
+    for k, twigs in enumerate((PIECE_WORDS // 64 + 1, 2 * PIECE_WORDS // 64 + 5,
+                               3 * PIECE_WORDS // 64 - 1)):
+        t0 += 7 + k
+        words = (rng.uniform(size=64 * twigs) < 0.3) * rng.integers(1, 1 << 20, 64 * twigs)
+        words[64 * 2:64 * 3] = 0                  # an empty twig: occupancy 0
+        ranges.append((TWIG, 64 * t0, words))
+        t0 += twigs
+    gw, cw, launched = _patch_both(ranges)
+    assert launched == 1
+    _assert_worlds_equal(gw, cw)
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_patch_kernel_row_cap(gpu_scene, extra):
+    """A batch of exactly the largest row capacity goes in one launch, one
+    more row in two; the pools equal patch_plain's either way."""
+    n = ROW_CAPS[-1] + extra
+    rng = np.random.default_rng(9 + extra)
+    ranges = [(TREE, i, rng.integers(0, 1 << 30, 1)) for i in range(n)]
+    gw, cw, launched = _patch_both(ranges)
+    assert launched == len(launch_groups(n)) == 1 + extra
     _assert_worlds_equal(gw, cw)
 
 
