@@ -18,7 +18,8 @@ order, and then:
   6. renders the frame with render_frame(shadow="none") through both kernels,
      plain and textured, and times it with CUDA events; the launch counters
      are zeroed just before this phase and read just after, and each of K2's
-     untextured and textured instantiations must have run once a frame; then
+     untextured and textured instantiations must have run once a frame (and
+     no wide instantiation, each of which has a counter of its own); then
      times each kernel and plain version alone (K2's loops of calls with its
      tables on the card and on the host; K2 also replayed from a CUDA graph
      with its inputs rotated past the L2, its device time), counts the
@@ -36,7 +37,8 @@ order, and then:
      for bit; then renders and times the frames shadow="ray", shadow="map"
      and the full reference frame (map + atlas + sky map), each with the
      launch counters zeroed just before and read just after and held to
-     their kernels a frame (map and full: K1 twice, K2 once, no K3), drives
+     their kernels a frame (map and full: K1 twice, K2 once, no K3, no wide
+     K2), drives
      the standalone K3 passes, times every K3 kernel and both fused kernels
      as device time in a CUDA graph (inputs rotated past the L2) beside the
      loops of calls, and checks the ray- and map-shadow goldens on the card;
@@ -82,6 +84,24 @@ order, and then:
      guards (march_checked equal to march; a NaN direction raises before
      any launch).  The frames, the marches and one step of each mode are
      timed by CUDA events.
+ 13. the differentiable frame: render with the light rig, the material
+     table, the eye, the rays (and the atlas and sky map) requiring grad,
+     the loss mean(rgb^2) + mean(depth), backward: one K1, one K2 (its wide
+     instantiation, the rig by pointer) and one K8 (csrc/shade_bwd.cu, K2's
+     VJP) a step, counters zeroed just before and read just after; the wide
+     K2's frame within phase 5's tolerance of shade_hits_plain and K8's
+     gradients against torch.autograd.grad of shade_hits_plain within
+     1e-3 |plain| + 1e-5 max|plain| (K6's tolerance: both sum in their own
+     order), on the shadowless frame plain and textured and on the map
+     frame plain and textured (the full frame) with its depth map given:
+     each of K8's four instantiations; K8 and the wide K2 as device time in
+     a cold CUDA graph beside K8's bound and its plain version; K2 with
+     material tables of 40, 300, 2,048, 8,192 and 65,536 rows (each hit's
+     row read from the columns) within phase 5's tolerance of
+     shade_hits_plain and timed; then
+     the port's command line in subprocesses: render at 640x360 (its
+     hit_frac held against the frame's) and a 3-step fit of 2 views at
+     64x64 (finite, falling losses).
 
 Last, one K2 call with its eye and tables on the host is traced by
 torch.profiler: no host-to-device copy may appear.
@@ -92,12 +112,12 @@ for the textured instantiations the distinct atlas texels and sky-map taps
 the frame reads and the sky's and the atlas decode's operations.
 
 Phase 1 prints the card's name and power limit (nvidia-smi) and ptxas's
-registers, shared memory and spills for every instantiation of K1, K2, K4
-and K7.  Every phase prints its
+registers, shared memory and spills for every instantiation of K1, K2, K4,
+K7 and K8.  Every phase prints its
 lines; any failure raises and the script exits nonzero without printing a
 result.  The line before the last is a JSON object with one entry per
-kernel and per instantiation of K2 (times, launches and the path that made
-them, bounds); the last
+kernel and per instantiation of K2 and K8 (times, launches and the path
+that made them, bounds); the last
 line is {"ok": true, "device": {...}}.  With no CUDA device it exits 1 at once.
 """
 
@@ -154,6 +174,18 @@ SEGMENT_OPS = 28
 # pass ~60 (forward terms again, G 8, cotangents 8, d sigma 4, albedo 12).
 COMPOSITE_FWD_OPS = 35
 COMPOSITE_BWD_OPS = 69
+
+# K8 (csrc/shade_bwd.cu), hand counts rounded, of what the function needs:
+# a hit's point and normal again (53), its forward again (294) and the
+# reverse pass: the three lights' terms (~135), Blinn terms with two
+# normalize VJPs each (~225), attenuations and distances (~42), the spot
+# cone (~55), depth and view vector (~45), the row sums (~5); and its 53
+# values added into the rig and eye sums (53).  A miss of an untextured
+# frame adds to no gradient.  Textured: a hit's texel address and decode
+# and their VJP (~60), a miss's sky weights and four tap scatters (~40).
+SHADE_BWD_OPS_PER_HIT = 907
+SHADE_BWD_TEX_OPS_PER_HIT = 60
+SHADE_BWD_TEX_OPS_PER_MISS = 40
 
 PATH_LEVELS = 8                 # csrc/march_step.cuh kPathLevels
 REF_STEPS = 50_006_052          # roofline_march.json true_ray_steps_per_frame
@@ -266,7 +298,8 @@ def ptxas_report(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for tag in ("march_kernel", "segments_kernel", "shade_kernel", "patch_kernel"):
+            for tag in ("march_kernel", "segments_kernel", "shade_bwd_kernel", "shade_kernel",
+                        "patch_kernel"):
                 if tag in name:
                     args = re.findall(r"L[bi](\d+)E", name.split(tag, 1)[1])
                     name = f"{tag}<{','.join(args)}>"
@@ -283,6 +316,11 @@ def texture_bytes(res, O, D, atlas, env) -> int:
     rays, each distinct texel once (12 bytes): the atlas texel each hit
     samples (nearest, by face UV, as shade_hits_plain) and the four sky-map
     taps of each miss (bilinear, as sample_env)."""
+    return sum(texture_parts(res, O, D, atlas, env))
+
+
+def texture_parts(res, O, D, atlas, env) -> tuple:
+    """texture_bytes split: (the atlas texels' bytes, the sky-map taps')."""
     import math
 
     from octree_raymarcher_tpu_torch.core.constants import EPS
@@ -305,7 +343,7 @@ def texture_bytes(res, O, D, atlas, env) -> int:
     y0 = torch.floor(v * h - 0.5).to(torch.int64)
     taps = torch.cat([torch.remainder(x0 + dx, w) + (y0 + dy).clamp(0, h - 1) * w
                       for dx in (0, 1) for dy in (0, 1)])
-    return 12 * (texels + torch.unique(taps).numel())
+    return 12 * texels, 12 * torch.unique(taps).numel()
 
 
 def march_mismatches(a, b) -> dict:
@@ -861,6 +899,250 @@ def phase_sharded(world, O, D, eye, cfg, frame_rgb, dev, zero_counts, read_count
         dist.destroy_process_group()
 
 
+def _rig_grad(rig) -> torch.Tensor:
+    """The gradient of a rig of tensor leaves as its 50 floats (zeros for a
+    leaf the shading does not read)."""
+    return torch.cat([(torch.zeros_like(v) if v.grad is None else v.grad).reshape(-1)
+                      for v in rig.leaves()])
+
+
+def _grad_close(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(values beyond 1e-3 |b| + 1e-5 max|b| (K6's tolerance), max abs err,
+    max|b|)."""
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    bad = int(((a - b).abs() > 1e-3 * b.abs() + 1e-5 * scale).sum())
+    return bad, max_abs(a, b), scale
+
+
+def phase_grad(world, rf, O, D, eye, atlas, env, smap, zero_counts, read_counts, k2_fwd_ms,
+               texel_bytes: int, smi: str) -> dict:
+    """Phase 13: the differentiable hard frame (render with every
+    differentiable input requiring grad: one K1, one wide K2 and one K8 a
+    step) against the plain versions of K2 (shade_hits_plain) and K8
+    (torch.autograd.grad of shade_hits_plain) on the bench frame,
+    shadowless plain and textured and map-shadowed plain and textured with
+    the light's depth map given; K8's device time in a cold CUDA graph
+    beside its bound and K2's; K2 with tables of 40 to 65,536 rows against
+    shade_hits_plain; then the port's command line: render at 640x360 and a
+    3-step fit, each in a subprocess.  Returns, per case, the launches, the
+    errors, the times and K8's bound."""
+    import tempfile
+
+    from octree_raymarcher_tpu_torch.shade import LightRig, MaterialTable, RenderConfig
+    from octree_raymarcher_tpu_torch.shade.render import (
+        ShadeTables,
+        _shade_bwd_launch,
+        _shade_launch,
+        render,
+        render_frame,
+        shade_hits,
+        shade_hits_plain,
+        shade_hits_vjp_plain,
+        shade_tables,
+    )
+
+    dev = O.device
+    n = O.shape[0]
+    hits = int(rf.hit.sum())
+    lights, mats = LightRig.default(), MaterialTable.default()
+    cfg = RenderConfig(shadow="none", max_steps=512, assume_resident=True)
+    cfg_map = RenderConfig(shadow="map", max_steps=512, assume_resident=True)
+    tex = dict(atlas=atlas, envmap=env)
+    # each case: its config, textures, depth map and the counters of its
+    # wide K2 and its K8 instantiation
+    cases = {"none": (cfg, {}, None, "shade_wide", "shade_bwd"),
+             "none textured": (cfg, tex, None, "shade_wide textured", "shade_bwd textured"),
+             "map": (cfg_map, {}, smap, "shade_map_wide", "shade_bwd_map"),
+             "full": (cfg_map, tex, smap, "shade_map_wide textured", "shade_bwd_map textured")}
+    keys = ("rig", "diffuse", "specular", "shininess", "eye", "atlas", "envmap", "origins",
+            "dirs")
+    result, upstream_of = {}, {}
+    for name, (c, kw, sm, k2_name, k8_name) in cases.items():
+        rig = LightRig.from_numpy(lights, device=dev, requires_grad=True)
+        table = MaterialTable.from_numpy(mats, device=dev, requires_grad=True)
+        eye_l, o_l, d_l = (t.clone().requires_grad_(True) for t in (eye, O, D))
+        tex_l = {k: v.clone().requires_grad_(True) for k, v in kw.items()}
+        upstream = {}
+        zero_counts()
+        out = render(world, o_l, d_l, eye_l, rig, table, c, shadowmap=sm, device=dev, **tex_l)
+        out["rgb"].register_hook(lambda g: upstream.__setitem__("rgb", g))
+        out["depth"].register_hook(lambda g: upstream.__setitem__("depth", g))
+        loss = torch.mean(out["rgb"] ** 2) + torch.mean(out["depth"])
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts().items() if v}
+        want_launches = {"march": 1, k2_name: 1, k8_name: 1}
+        if launches != want_launches:
+            fail(f"the differentiable {name} frame launched {launches}, want {want_launches}")
+        # the wide K2's frame against shade_hits_plain (phase 5's tolerance)
+        with torch.no_grad():
+            plain = shade_hits_plain(rf, O, D, eye, lights, mats, c, shadowmap=sm, **kw)
+        fwd_bad = sum(int(((out[k].detach() - plain[k]).abs() > 1e-5 + 1e-4 * plain[k].abs())
+                          .sum()) for k in ("rgb", "depth", "point", "normal"))
+        fwd_err = max(max_abs(out[k].detach(), plain[k]) for k in ("rgb", "depth", "point",
+                                                                     "normal"))
+        if fwd_bad:
+            fail(f"the wide K2 ({name}) disagrees with shade_hits_plain on {fwd_bad} values")
+        got = {"rig": _rig_grad(rig),
+               "diffuse": table.diffuse.grad, "specular": table.specular.grad,
+               "shininess": table.shininess.grad, "eye": eye_l.grad, "origins": o_l.grad,
+               "dirs": d_l.grad, **{k: v.grad for k, v in tex_l.items()}}
+        want = shade_hits_vjp_plain(rf, O, D, eye, lights, mats, c, upstream["rgb"],
+                                    upstream["depth"], shadowmap=sm, **kw)
+        torch.cuda.synchronize()
+        report, bad_total, err_max = {}, 0, 0.0
+        for k in keys:
+            if got.get(k) is None:
+                continue
+            bad, err, scale = _grad_close(got[k], want[k])
+            if not bool(torch.isfinite(got[k]).all()):
+                fail(f"K8 {name}: non-finite gradient of {k}")
+            bad_total += bad
+            report[k] = (err, scale)
+            err_max = max(err_max, err)
+        print(f"phase 13 K8 vs plain ({name}, loss mean(rgb^2) + mean(depth), 1080p): max abs "
+              f"err, largest |grad| per gradient {report}; values beyond 1e-3|plain| + "
+              f"1e-5 max|plain| {bad_total}; the wide K2's frame vs shade_hits_plain: max abs "
+              f"err {fwd_err}; launches a step {launches}", flush=True)
+        if bad_total:
+            fail(f"K8 disagrees with its plain version ({name}) on {bad_total} values")
+        result[name] = {"k2": k2_name, "k8": k8_name, "k2_launches": launches[k2_name],
+                        "k8_launches": launches[k8_name], "k2_err": fwd_err, "k8_err": err_max}
+        upstream_of[name] = (upstream["rgb"].detach(), upstream["depth"].detach())
+        del out, loss, got, want, plain, rig, table, eye_l, o_l, d_l, tex_l
+
+    # K8 alone: device time in a cold CUDA graph (the rig, the table and the
+    # eye on the card, the rays' gradients not asked for, as a fit of the
+    # lights and materials asks), the wide K2 forward of the same step, and
+    # the plain version (torch.autograd.grad of shade_hits_plain)
+    rig_v = lights.to_tensor(dev)
+    cols = tuple(c.to(dev).contiguous() for c in (mats.diffuse, mats.specular, mats.shininess))
+    block = np.zeros(56, np.float32)
+    block[3:6] = np.asarray(cfg.sky, np.float32)
+    wide = ShadeTables(block, eye, cols, mats.num_materials, rig_v)
+    for name, (c, kw, sm, _, _) in cases.items():
+        g_rgb, g_depth = upstream_of[name]
+        smk = {} if sm is None else {"shadowmap": sm}
+        result[name].update({
+            "K8": cold_graph_ms(
+                lambda r, o, d, gr, gd: _shade_bwd_launch(r, o, d, eye, rig_v, cols, c, gr, gd,
+                                                          **kw, **smk),
+                (rf, O, D, g_rgb, g_depth), TIMED_ITERS),
+            "K2 wide": cold_graph_ms(
+                lambda r, o, d: _shade_launch(r, o, d, wide, c, **kw, **smk), (rf, O, D),
+                TIMED_ITERS),
+            "plain": cuda_ms(lambda: shade_hits_vjp_plain(rf, O, D, eye, lights, mats, c, g_rgb,
+                                                          g_depth, **kw, **smk), 1)})
+    # K8's bound, the bytes and operations the timed function needs (no ray
+    # gradients asked): every ray's hit byte; a hit's o, d, cell, t,
+    # material and upstream rgb and depth (64 bytes); the rig, the eye and
+    # the table read and their gradients written once.  A miss of an
+    # untextured frame adds to no gradient.  Textured: a miss reads d and
+    # its upstream rgb (the sky sample is linear in the taps, so their
+    # gradients need no tap values), a hit its atlas texel, and the atlas's
+    # and sky map's gradients are written once.  Map-shadowed: the depth
+    # map is read.
+    table_bytes = sum(x.nbytes for x in cols)
+    for name, (c, kw, sm, _, _) in cases.items():
+        nbytes = n + hits * 64 + 2 * (53 * 4 + table_bytes)
+        ops = SHADE_BWD_OPS_PER_HIT * hits
+        if kw:
+            nbytes += (n - hits) * 24 + texel_bytes + atlas.nbytes + env.nbytes
+            ops += SHADE_BWD_TEX_OPS_PER_HIT * hits + SHADE_BWD_TEX_OPS_PER_MISS * (n - hits)
+        if sm is not None:
+            nbytes += sm[0].numel() * 4
+            ops += (PROJECT_OPS - 7) * hits
+        result[name]["bound"] = bound_ms(nbytes, ops)
+        result[name]["bytes"] = nbytes
+    print(f"phase 13 device ms per launch in a cold CUDA graph (inputs rotated past the L2; "
+          f"{smi}): " + "; ".join(
+              f"{name}: K8 {t['K8']:.4f} ms, bound {t['bound'][0]:.5f} ms by {t['bound'][1]} "
+              f"({t['bytes']} bytes, {t['bound'][0] / t['K8']:.4f} of it), K2 with the rig by "
+              f"pointer {t['K2 wide']:.4f} ms (by value {k2_fwd_ms[name]:.4f}), plain K8 "
+              f"(autograd of shade_hits_plain) {t['plain']:.2f} ms"
+              for name, t in result.items()), flush=True)
+
+    # K2 with tables past the parameter block: by pointer, each hit's row
+    # read from the columns through __ldg, ids spread over the table and
+    # past its ends on every hit
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    wide_ms, wide_err = {}, 0.0
+    for rows in (40, 300, 2048, 8192, 65536):
+        table = MaterialTable(*(torch.rand(sh, generator=gen, device=dev)
+                                for sh in ((rows, 3), (rows, 3), (rows, 3))),
+                              1.0 + 99.0 * torch.rand(rows, generator=gen, device=dev))
+        ids = torch.randint(-3, rows + 3, (n,), generator=gen, device=dev, dtype=torch.int32)
+        r2 = dataclasses.replace(rf, material=torch.where(rf.hit, ids, rf.material))
+        a = shade_hits(r2, O, D, eye, lights, table, cfg)
+        b = shade_hits_plain(r2, O, D, eye, lights, table, cfg)
+        torch.cuda.synchronize()
+        bad = sum(int(((a[k] - b[k]).abs() > 1e-5 + 1e-4 * b[k].abs()).sum())
+                  for k in ("rgb", "depth", "point", "normal"))
+        err = max(max_abs(a[k], b[k]) for k in ("rgb", "depth", "point", "normal"))
+        wide_err = max(wide_err, err)
+        if bad:
+            fail(f"K2 with a {rows}-row table disagrees with shade_hits_plain on {bad} values")
+        tables = shade_tables(eye, lights, table, cfg, dev)
+        wide_ms[rows] = cold_graph_ms(lambda r, o, d: _shade_launch(r, o, d, tables, cfg),
+                                      (r2, O, D), TIMED_ITERS)
+        del a, b, r2, table, ids
+    print(f"phase 13 K2 with wide tables vs shade_hits_plain (1e-5 + 1e-4|plain|): max abs "
+          f"err {wide_err}; device ms per launch in a cold CUDA graph { {k: round(v, 5) for k, v in wide_ms.items()} } "
+          f"(8 rows by value: {k2_fwd_ms['none']:.4f})", flush=True)
+    result = {"cases": result, "wide_ms": wide_ms, "wide_err": wide_err}
+
+    # the command line: render at 640x360 against the frame rendered here
+    # from the same world and camera, and a 3-step fit of 2 views at 64x64
+    from octree_raymarcher_tpu_torch.shade import PerspectiveCamera
+    from octree_raymarcher_tpu_torch.world.world import World
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # both subprocesses start together; the frame is rendered here meanwhile
+        cmd = [sys.executable, "-m", "octree_raymarcher_tpu_torch"]
+        t0 = time.time()
+        procs = {
+            "render": subprocess.Popen(
+                cmd + ["render", "--device", "cuda", "--res", "640x360", "--out",
+                       os.path.join(tmp, "frame.png")], cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True),
+            "fit": subprocess.Popen(
+                cmd + ["fit", "--device", "cuda", "--steps", "3", "--res-fit", "64", "--out",
+                       os.path.join(tmp, "fit")], cwd=HERE, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env={**os.environ, "FIT_VIEWS": "2"})}
+        try:
+            cw = World.generate(dims=(2, 2, 2), chunksize=64.0, depth=6, seed=0,
+                                water_level=6.0, amplitude=32.0).to_device(device=dev)[1]
+            cam = PerspectiveCamera(position=(64.0, 128.0 * 0.9, -0.6 * 128.0), yaw_deg=0.0,
+                                    pitch_deg=-25.0, fov_deg=70.0, width=640, height=360)
+            co, cd = cam.rays()
+            hit = float(render_frame(cw, co, cd, np.asarray(cam.position, np.float32),
+                                     cfg=RenderConfig(shadow="map", max_steps=512),
+                                     device=dev)["hit"].float().mean())
+            outs = {k: p.communicate(timeout=300) for k, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        cli_s = time.time() - t0
+        for k, p in procs.items():
+            if p.returncode != 0:
+                fail(f"the CLI {k} failed: {outs[k][1][-2000:]}")
+        line = json.loads(outs["render"][0].strip().splitlines()[-1])
+        if line["hit_frac"] != round(hit, 3) or line["device"] != torch.cuda.get_device_name(0):
+            fail(f"the CLI render gave {line}, the frame's hit fraction is {hit}")
+        rec = json.loads(open(os.path.join(tmp, "fit", "bench_fit_result.json")).read())
+        losses = rec["losses"]
+        if len(losses) != 3 or not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            fail(f"the CLI fit's losses are not finite and falling: {losses}")
+    print(f"phase 13 CLI render (640x360, map shadows): {line} (the frame's hit fraction "
+          f"{hit:.4f}); CLI fit (3 steps, 2 views at 64x64): losses {losses}, {rec['device']}, "
+          f"{rec['power_limit']}; both subprocesses {cli_s:.1f} s with their interpreters' "
+          f"start", flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -910,10 +1192,12 @@ def main() -> int:
     )
     from octree_raymarcher_tpu_torch.shade import shadow as S
     from octree_raymarcher_tpu_torch.shade.render import (
+        SHADE_BWD_KERNELS,
         SHADE_KERNEL,
         SHADE_MAP_KERNEL,
         SHADE_MAP_TEX_KERNEL,
         SHADE_TEX_KERNEL,
+        SHADE_WIDE_KERNELS,
         _ray_shadow_hits,
         _shade_launch,
         shade_tables,
@@ -927,7 +1211,15 @@ def main() -> int:
                 "ray_prep": S.RAY_PREP_KERNEL, "shadow_resolve": S.SHADOW_RESOLVE_KERNEL,
                 "map_project": S.MAP_PROJECT_KERNEL, "segments": SEGMENTS_KERNEL,
                 "composite_fwd": COMPOSITE_FWD_KERNEL,
-                "composite_bwd": COMPOSITE_BWD_KERNEL, "patch": PATCH_KERNEL}
+                "composite_bwd": COMPOSITE_BWD_KERNEL, "patch": PATCH_KERNEL,
+                "shade_wide": SHADE_WIDE_KERNELS[(False, False)],
+                "shade_wide textured": SHADE_WIDE_KERNELS[(False, True)],
+                "shade_map_wide": SHADE_WIDE_KERNELS[(True, False)],
+                "shade_map_wide textured": SHADE_WIDE_KERNELS[(True, True)],
+                "shade_bwd": SHADE_BWD_KERNELS[(False, False)],
+                "shade_bwd textured": SHADE_BWD_KERNELS[(False, True)],
+                "shade_bwd_map": SHADE_BWD_KERNELS[(True, False)],
+                "shade_bwd_map textured": SHADE_BWD_KERNELS[(True, True)]}
 
     def zero_counts():
         for k in counters.values():
@@ -952,7 +1244,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}; ptxas: {regs}", flush=True)
     for name, info in ptxas_report(kernels.build_log()).items():
         if any(k in name for k in ("march_kernel", "segments_kernel", "shade_kernel",
-                                   "patch_kernel")):
+                                   "shade_bwd_kernel", "patch_kernel")):
             print(f"phase 1 ptxas {name}: {info}", flush=True)
 
     # ---- 2. bench world: generate, pack, upload -----------------------------
@@ -1619,6 +1911,12 @@ def main() -> int:
     # ---- 12. the ray-sharded paths on a one-rank NCCL group ----------------------------
     phase_sharded(world, O, D, eye, cfg, out["rgb"], dev, zero_counts, read_counts, smi)
 
+    # ---- 13. the differentiable frame (K8), wide tables, the command line ------------
+    grad = phase_grad(world, rf, O, D, eye, atlas, env, smap, zero_counts, read_counts,
+                      {"none": k2g_ms, "none textured": k2tg_ms, "map": dev_ms["shade_map"],
+                       "full": dev_ms["shade_map textured"]},
+                      texture_parts(rf, O, D, atlas, env)[0], smi)
+
     # ---- K2 with its tables on the host uploads nothing ------------------------
     # one call traced by torch.profiler (last: a trace taken before phase 12's
     # dropped device events there): no host-to-device copy may appear (the
@@ -1709,6 +2007,23 @@ def main() -> int:
               "session", k7["launches"], k7["err"], k7["ms"], k7["plain_ms"],
               (k7["bound_ms"], "bytes")),
     ]}
+    # phase 13's differentiable frames, one a case: K2's wide instantiation
+    # (the rig by pointer; the bounds and plain versions of the narrow one,
+    # the same function) and K2's VJP K8 (the reverse mode XLA derives for
+    # shade_hits), each as device ms a launch in a cold CUDA graph; no
+    # single PyTorch call computes K8, so no library time
+    fwd_of = {"none": (p2_ms, b2, "62"), "none textured": (p2t_ms, b2t, "62"),
+              "map": (sm_plain_ms, b_sm, "427"), "full": (smt_plain_ms, b_smt, "427")}
+    for case, g in grad["cases"].items():
+        plain_ms, bound, line = fwd_of[case]
+        report["kernels"].append(entry(
+            g["k2"], "shade.cu", f"octree_raymarcher_tpu/shade/render.py:{line}",
+            f"differentiable frames ({case})", g["k2_launches"], g["k2_err"], g["K2 wide"],
+            plain_ms, bound))
+        report["kernels"].append(entry(
+            g["k8"], "shade_bwd.cu", "octree_raymarcher_tpu/shade/render.py:62",
+            f"differentiable frames ({case})", g["k8_launches"], g["k8_err"], g["K8"],
+            g["plain"], g["bound"]))
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -54,6 +54,18 @@
 // kTex instantiations carry the atlas and sky-map code, which the
 // untextured frames do not compile in.
 //
+// The wide instantiations (kWide) take what the parameter block cannot: a
+// rig on the card (a rig of card tensors, and the differentiable path of
+// shade/render.py, pass its 50 floats by pointer, never read back) and a
+// table of any number of rows (the reference's lookup takes any M; twig
+// material ids are 16-bit).  Each block copies the rig into shared memory.
+// A table of at most kMaxMaterials rows is staged in shared memory as the
+// narrow instantiations stage it; a larger one is read per hit from the
+// card's columns through __ldg (the read-only cache holds the rows the
+// block's hits share; staging a large table would cost every block its
+// copy).  Ids clip to M - 1 as lookup does.  The narrow instantiations (a
+// host rig, at most kMaxMaterials rows) are unchanged by them.
+//
 // Arithmetic follows shade_hits_plain (shade/render.py) operation for
 // operation; with -fmad=false only the libm functions (powf, atan2f, acosf,
 // sqrtf is exact) may differ from PyTorch's by an ulp, and powf with the
@@ -62,55 +74,16 @@
 
 #include <algorithm>
 
+#include "shade.cuh"
 #include "shadow.cuh"
 
 namespace ort {
 namespace {
 
-// Flattened light rig (shade/lights.py LightRig.to_vector), 50 floats.
-enum LightSlot {
-    kPointPos = 0, kPointAmb = 3, kPointDif = 6, kPointSpec = 9,
-    kPointKc = 12, kPointKl = 13, kPointKq = 14,
-    kDirPos = 15, kDirDir = 18, kDirAmb = 21, kDirDif = 24, kDirSpec = 27,
-    kSpotPos = 30, kSpotDir = 33, kSpotAmb = 36, kSpotDif = 39, kSpotSpec = 42,
-    kSpotCosPhi = 45, kSpotCosGamma = 46, kSpotKc = 47, kSpotKl = 48, kSpotKq = 49,
-};
-constexpr int kLightFloats = 50;
-// Material table row (shade/materials.py MaterialTable.to_matrix), 10 floats.
-constexpr int kMatStride = 10, kMatDif = 3, kMatSpec = 6, kMatShin = 9;
-// Rows the parameter block and the shared table hold (shade/render.py
-// SHADE_MAX_MATERIALS); a larger table is refused on the host.
-constexpr int kMaxMaterials = 32;
-// The host block (shade/render.py shade_tables): eye, sky, rig, rows.
-constexpr int kBlockEye = 0, kBlockSky = 3, kBlockLights = 6, kBlockRows = 56;
 constexpr int kThreads = 128;
 // Blocks that decode the atlas: at most one per SM, so all run in the
 // launch's first wave.
 constexpr int64_t kMaxDecoders = 128;
-
-__device__ __forceinline__ V3 v3(const float* p) { return {p[0], p[1], p[2]}; }
-
-// lights._blinn_terms -> (diffuse factor, specular factor)
-__device__ __forceinline__ void blinn(V3 n, V3 l, V3 v, float shin, float& d, float& s) {
-    const V3 h = normalize(add(l, v));
-    d = fmaxf(dot(n, l), 0.0f);
-    s = powf(fmaxf(dot(v, h), 1e-6f), shin);
-}
-
-// The ambient, diffuse and specular terms of one light, before attenuation
-// and cone intensity (lights.py: amb, diff, spec).
-struct Terms { V3 amb, diff, spec; };
-
-__device__ __forceinline__ Terms light_terms(const float* L, int amb, int dif, int spec,
-                                             float d, float s, V3 diffuse, V3 specular,
-                                             float lit) {
-    return {mul(v3(L + amb), diffuse),
-            scale(mul(scale(v3(L + dif), d), diffuse), lit),
-            scale(mul(scale(v3(L + spec), s), specular), lit)};
-}
-
-// One material row in shared memory: (diffuse, shininess), (specular, 0).
-struct MatRow { float4 dif_shin, spec; };
 
 struct ShadeArgs {
     const uint8_t* hit;
@@ -148,6 +121,8 @@ struct ShadeArgs {
     float* out_depth;
     float* out_point;
     float* out_normal;
+    // kWide: the rig on the card (else `lights`).
+    const float* rig;
 };
 
 __device__ __forceinline__ int load_acquire(const int* p) {
@@ -156,7 +131,8 @@ __device__ __forceinline__ int load_acquire(const int* p) {
     return v;
 }
 
-// The gamma decode of one texel channel (render.py:100).
+// The gamma decode of one texel channel (render.py:100; shade.cuh
+// decode_gamma, with the gamma read from the parameter block).
 __device__ __forceinline__ float decode(const ShadeArgs& a, float c) {
     return powf(fmaxf(c, 1e-6f), a.gamma);
 }
@@ -175,7 +151,11 @@ __device__ __forceinline__ void decode_atlas(const ShadeArgs& a) {
 }
 
 // geometry.cube_uv + the nearest atlas texel, gamma-decoded
-// (render.py:87-105); `m` is the ray's material id.  The decoded atlas is
+// (render.py:87-105); `m` is the ray's material id.  This and sky_sample
+// keep their own copy of the texel and tap addresses (shade.cuh atlas_lin,
+// sky_coords compute the same for K8), so that the narrow instantiations
+// compile to the code they had before K8 and the wide ones existed,
+// instruction for instruction.  The decoded atlas is
 // read once every decoder block is done (an acquire); until then (the
 // first wave of blocks) the ray decodes its texel itself.  Both give the
 // same powf of the same texel.
@@ -280,28 +260,66 @@ __device__ __forceinline__ V3 shade_lights(const float* L, V3 n, V3 p, V3 eye, V
     return c;
 }
 
-template <bool kMap, bool kTex>
+// A row of the card's columns (the wide instantiations).
+__device__ __forceinline__ MatRow global_row(const ShadeArgs& a, int m) {
+    const V3 dif = ld3(a.mat_diffuse + 3 * m);
+    const V3 spec = ld3(a.mat_specular + 3 * m);
+    return {make_float4(dif.x, dif.y, dif.z, __ldg(a.mat_shininess + m)),
+            make_float4(spec.x, spec.y, spec.z, 0.0f)};
+}
+
+// kWide: the rig comes from the card (or the block) into shared memory and
+// the table has any number of rows: staged in shared memory up to
+// kMaxMaterials, else read per hit from the card's columns.  The narrow
+// instantiations (a host rig, at most kMaxMaterials rows) are unchanged.
+template <bool kMap, bool kTex, bool kWide>
 __global__ void __launch_bounds__(kThreads) shade_kernel(const __grid_constant__ ShadeArgs a) {
     // ---- the decoded atlas (first blocks), the material table (every block) ---
     if constexpr (kTex) {
         if (a.atlas != nullptr && (int)blockIdx.x < a.decoders) decode_atlas(a);
     }
-    __shared__ MatRow table[kMaxMaterials];
-    const int m = threadIdx.x;
-    if (m < a.num_materials) {
-        V3 dif, spec;
-        float shin;
-        if (a.mat_diffuse != nullptr) {
-            dif = ld3(a.mat_diffuse + 3 * m);
-            spec = ld3(a.mat_specular + 3 * m);
-            shin = __ldg(a.mat_shininess + m);
-        } else {
-            dif = v3(a.rows + m * kMatStride + kMatDif);
-            spec = v3(a.rows + m * kMatStride + kMatSpec);
-            shin = a.rows[m * kMatStride + kMatShin];
+    MatRow* table;
+    const float* L;
+    if constexpr (kWide) {
+        __shared__ float rig[kLightFloats];
+        __shared__ MatRow staged[kMaxMaterials];
+        table = staged;
+        for (int i = threadIdx.x; i < kLightFloats; i += blockDim.x) {
+            rig[i] = a.rig != nullptr ? __ldg(a.rig + i) : a.lights[i];
         }
-        table[m] = {make_float4(dif.x, dif.y, dif.z, shin),
-                    make_float4(spec.x, spec.y, spec.z, 0.0f)};
+        const int m = threadIdx.x;
+        if (a.num_materials <= kMaxMaterials && m < a.num_materials) {
+            if (a.mat_diffuse != nullptr) {
+                table[m] = global_row(a, m);
+            } else {
+                const float* row = a.rows + m * kMatStride;
+                table[m] = {make_float4(row[kMatDif], row[kMatDif + 1], row[kMatDif + 2],
+                                        row[kMatShin]),
+                            make_float4(row[kMatSpec], row[kMatSpec + 1], row[kMatSpec + 2],
+                                        0.0f)};
+            }
+        }
+        L = rig;
+    } else {
+        __shared__ MatRow narrow[kMaxMaterials];
+        table = narrow;
+        L = a.lights;
+        const int m = threadIdx.x;
+        if (m < a.num_materials) {
+            V3 dif, spec;
+            float shin;
+            if (a.mat_diffuse != nullptr) {
+                dif = ld3(a.mat_diffuse + 3 * m);
+                spec = ld3(a.mat_specular + 3 * m);
+                shin = __ldg(a.mat_shininess + m);
+            } else {
+                dif = v3(a.rows + m * kMatStride + kMatDif);
+                spec = v3(a.rows + m * kMatStride + kMatSpec);
+                shin = a.rows[m * kMatStride + kMatShin];
+            }
+            table[m] = {make_float4(dif.x, dif.y, dif.z, shin),
+                        make_float4(spec.x, spec.y, spec.z, 0.0f)};
+        }
     }
     __syncthreads();
 
@@ -324,7 +342,13 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const __grid_constant__
     if (hit) {
         // ---- materials.lookup, the atlas texel, the shadow, the lights ------------
         const int mat = a.material[r];
-        const MatRow row = table[clampi(mat, 0, a.num_materials - 1)];
+        const int mi = clampi(mat, 0, a.num_materials - 1);
+        MatRow row;
+        if constexpr (kWide) {
+            row = a.num_materials <= kMaxMaterials ? table[mi] : global_row(a, mi);
+        } else {
+            row = table[mi];
+        }
         V3 diffuse = {row.dif_shin.x, row.dif_shin.y, row.dif_shin.z};
         V3 specular = {row.spec.x, row.spec.y, row.spec.z};
         if constexpr (kTex) {
@@ -341,8 +365,7 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const __grid_constant__
             shadow = a.shadow != nullptr ? a.shadow[r] : 0.0f;
         }
         const V3 eye = a.eye != nullptr ? ld3(a.eye) : a.eye_v;
-        rgb = shade_lights(a.lights, n, p, eye, diffuse, specular, row.dif_shin.w,
-                           1.0f - shadow);
+        rgb = shade_lights(L, n, p, eye, diffuse, specular, row.dif_shin.w, 1.0f - shadow);
         // ---- geometry.inverse_depth -------------------------------------------
         const float dist = length(sub(p, eye));
         const float inv_near = 8.0f;                       // 1 / NEAR
@@ -368,10 +391,10 @@ __global__ void __launch_bounds__(kThreads) shade_kernel(const __grid_constant__
     a.out_normal[3 * r + 2] = n.z;
 }
 
-template <bool kMap, bool kTex>
+template <bool kMap, bool kTex, bool kWide = false>
 void launch(const ShadeArgs& a, cudaStream_t st) {
     const unsigned blocks = (unsigned)((a.n + kThreads - 1) / kThreads);
-    shade_kernel<kMap, kTex><<<blocks, kThreads, 0, st>>>(a);
+    shade_kernel<kMap, kTex, kWide><<<blocks, kThreads, 0, st>>>(a);
 }
 
 }  // namespace
@@ -383,11 +406,14 @@ extern "C" {
 // the host block of shade/render.py shade_tables: eye 3, sky 3, the rig's
 // 50 floats, then `num_materials` rows of 10 floats unless the table's
 // columns are on the card (`mat_diffuse`, `mat_specular`, `mat_shininess`).
-// `eye` on the card overrides the block's eye.  With `shadow_depth` (an
-// [map_h, map_w] light depth map, its row-major 4x4 `map_vp` on the host
-// and `map_bias`) the map-shadowed instantiations run and `shadow` must be
-// null; with an atlas or a sky map the textured ones.  Returns
-// cudaErrorInvalidValue for a table of more than kMaxMaterials rows.
+// `eye` on the card overrides the block's eye, and `rig` (50 floats on the
+// card) the block's rig.  With `shadow_depth` (an [map_h, map_w] light depth
+// map, its row-major 4x4 `map_vp` on the host and `map_bias`) the
+// map-shadowed instantiations run and `shadow` must be null; with an atlas
+// or a sky map the textured ones.  A rig on the card or a table of more
+// than kMaxMaterials rows (which must be on the card) takes the wide
+// instantiations.  Returns cudaErrorInvalidValue for an empty table or a
+// host table of more than kMaxMaterials rows.
 int ort_shade(const void* hit, const void* t, const void* material,
               const void* cell_bmin, const void* cell_size, const void* o,
               const void* dirs, const void* eye, const void* shadow,
@@ -397,8 +423,9 @@ int ort_shade(const void* hit, const void* t, const void* material,
               const void* atlas, int atlas_materials, int atlas_res, void* decoded,
               const void* envmap, int env_h, int env_w, float gamma, int64_t n,
               void* out_rgb, void* out_depth, void* out_point, void* out_normal,
-              void* stream) {
-    if (num_materials < 1 || num_materials > ort::kMaxMaterials) {
+              const void* rig, void* stream) {
+    if (num_materials < 1 ||
+        (num_materials > ort::kMaxMaterials && mat_diffuse == nullptr)) {
         return (int)cudaErrorInvalidValue;
     }
     const float* host = static_cast<const float*>(block);
@@ -449,10 +476,21 @@ int ort_shade(const void* hit, const void* t, const void* material,
     a.out_depth = static_cast<float*>(out_depth);
     a.out_point = static_cast<float*>(out_point);
     a.out_normal = static_cast<float*>(out_normal);
+    a.rig = static_cast<const float*>(rig);
     if (n > 0) {
         const bool map = shadow_depth != nullptr;
         const bool tex = atlas != nullptr || envmap != nullptr;
-        if (map && tex) {
+        if (rig != nullptr || num_materials > ort::kMaxMaterials) {
+            if (map && tex) {
+                ort::launch<true, true, true>(a, st);
+            } else if (map) {
+                ort::launch<true, false, true>(a, st);
+            } else if (tex) {
+                ort::launch<false, true, true>(a, st);
+            } else {
+                ort::launch<false, false, true>(a, st);
+            }
+        } else if (map && tex) {
             ort::launch<true, true>(a, st);
         } else if (map) {
             ort::launch<true, false>(a, st);

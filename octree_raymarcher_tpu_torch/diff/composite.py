@@ -125,8 +125,12 @@ def init_params_from_world(world: TorchWorld, materials=None, solid_density: flo
     density_raw = torch.where(solid, dr_solid, -8.0).to(torch.float32)
     diffuse = materials.diffuse.to(device=dev, dtype=torch.float32)
     mc = torch.clamp_max(mats, diffuse.shape[0] - 1)
-    c = torch.clamp(diffuse[mc], 1e-4, 1 - 1e-4)
-    albedo_raw = torch.log(c / (1 - c)).to(torch.float32)
+    # the logit of each table row, then gathered per slot: the same values as
+    # the reference's logit of the gathered colours, in one small op (a
+    # CPU op over every slot runs in threads, and a thread's share has been
+    # seen to come out of torch.log some 1e-4 off)
+    c = torch.clamp(diffuse, 1e-4, 1 - 1e-4)
+    albedo_raw = torch.log(c / (1 - c)).to(torch.float32)[mc]
     return VoxelParams(density_raw=density_raw, albedo_raw=albedo_raw.contiguous())
 
 

@@ -31,7 +31,9 @@ def sample_env(envmap, dirs, bilinear: bool = True):
     n = normalize(dirs)
 
     u = torch.atan2(n[:, 2], n[:, 0]) / const(n, 2.0 * math.pi) + 0.5   # [0, 1) wrap
-    v = torch.acos(torch.clamp(n[:, 1], -1.0, 1.0)) / const(n, math.pi)  # 0=zenith
+    # jnp.clip's maximum then minimum: a tie takes half the gradient
+    cy = torch.minimum(torch.maximum(n[:, 1], const(n, -1.0)), const(n, 1.0))
+    v = torch.acos(cy) / const(n, math.pi)  # 0=zenith
 
     def tap(xi, yi):
         xi = torch.remainder(xi, W)

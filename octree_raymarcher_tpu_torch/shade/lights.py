@@ -107,14 +107,48 @@ VECTOR_LAYOUT = (
 )
 
 
+# Host leaf types, tested before torch.Tensor: isinstance against a tensor
+# type goes through torch's metaclass, which costs more than the rest of a
+# leaf's handling, and the rig's checks run on every shading call.
+_HOST = (np.ndarray, np.generic, float, int)
+
+
+def host_leaf(v) -> np.ndarray:
+    """A light leaf as host float32 numpy (a tensor is detached and read
+    back: one small copy for a leaf on the card)."""
+    if not isinstance(v, _HOST) and isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy().astype(np.float32, copy=False)
+    return np.asarray(v, dtype=np.float32)
+
+
 def _t(v, like):
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=torch.float32)
     return torch.as_tensor(np.asarray(v, dtype=np.float32), device=like.device)
+
+
+def _scalar(v, like):
+    """A scalar leaf: a host value as a Python float of its float32 value,
+    a tensor as a 0-d float32 tensor on like's device."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=like.device, dtype=torch.float32).reshape(())
+    return float(np.float32(v))
+
+
+def _max(x, c: float):
+    """``jnp.maximum(x, c)``: its value, and half the gradient at a tie."""
+    return torch.maximum(x, const(x, c))
+
+
+def _clip01(x):
+    """``jnp.clip(x, 0, 1)``, a maximum then a minimum."""
+    return torch.minimum(_max(x, 0.0), const(x, 1.0))
 
 
 def _blinn_terms(n, l, v, shininess):
     h = normalize(l + v)
-    d = torch.clamp_min(dot(n, l), 0.0)
-    s = torch.pow(torch.clamp_min(dot(v, h), 1e-6), shininess)
+    d = _max(dot(n, l), 0.0)
+    s = torch.pow(_max(dot(v, h), 1e-6), shininess)
     return d, s
 
 
@@ -126,8 +160,7 @@ def _terms(light, d, s, diffuse, specular, lit, p):
 
 
 def _attenuation(light, dist):
-    kc, kl, kq = (float(np.float32(x)) for x in (light.constant, light.linear,
-                                                  light.quadratic))
+    kc, kl, kq = (_scalar(x, dist) for x in (light.constant, light.linear, light.quadratic))
     return 1.0 / (kc + kl * dist + kq * dist * dist)
 
 
@@ -157,9 +190,13 @@ def shade_spotlight(light: Spotlight, n, p, eye, diffuse, specular, shininess, s
     d, s = _blinn_terms(n, l, v, shininess)
     att = _attenuation(light, length(p - pos))
     theta = dot(l, normalize(-_t(light.direction, p)))
-    cphi, cgam = np.float32(light.cos_phi), np.float32(light.cos_gamma)
-    cone = max(cphi - cgam, np.float32(1e-6))            # float32 on the host
-    intensity = torch.clamp((theta - float(cgam)) / const(theta, float(cone)), 0.0, 1.0)
+    if isinstance(light.cos_phi, torch.Tensor) or isinstance(light.cos_gamma, torch.Tensor):
+        cphi, cgam = _scalar(light.cos_phi, p), _scalar(light.cos_gamma, p)
+        intensity = _clip01((theta - cgam) / _max(cphi - cgam, 1e-6))
+    else:
+        cphi, cgam = np.float32(light.cos_phi), np.float32(light.cos_gamma)
+        cone = max(cphi - cgam, np.float32(1e-6))            # float32 on the host
+        intensity = _clip01((theta - float(cgam)) / const(theta, float(cone)))
     amb, diff, spec = _terms(light, d, s, diffuse, specular, 1.0 - shadow, p)
     return (amb + (diff + spec) * intensity[..., None]) * att[..., None]
 
@@ -181,22 +218,79 @@ class LightRig:
         )
 
     @staticmethod
-    def from_numpy(obj) -> "LightRig":
+    def from_numpy(obj, device=None, requires_grad: bool = False) -> "LightRig":
         """From any rig with the same fields (for example the JAX package's
-        LightRig), each leaf read as float32 numpy."""
+        LightRig), each leaf read as float32 numpy.  With ``device``, each
+        leaf becomes a float32 tensor there instead, a leaf of autograd
+        that requires grad when ``requires_grad``."""
+        def leaf(v):
+            a = np.array(np.asarray(v), dtype=np.float32)
+            if device is None:
+                return a
+            return torch.from_numpy(a).to(device).requires_grad_(requires_grad)
+
         def conv(src, cls):
-            return cls(**{f.name: _np(getattr(src, f.name))
-                          for f in dataclasses.fields(cls)})
+            return cls(**{f.name: leaf(getattr(src, f.name)) for f in dataclasses.fields(cls)})
 
         return LightRig(point=conv(obj.point, PointLight),
                         directional=conv(obj.directional, DirectionalLight),
                         spot=conv(obj.spot, Spotlight))
 
+    @staticmethod
+    def from_vector(v) -> "LightRig":
+        """A rig whose leaves are slices of ``v`` (f32[50] in VECTOR_LAYOUT
+        order; a tensor's slices are views, so a gradient reaches ``v``)."""
+        fields: dict = {"point": {}, "directional": {}, "spot": {}}
+        i = 0
+        for lt, f, w in VECTOR_LAYOUT:
+            fields[lt][f] = v[i:i + w] if w > 1 else v[i].reshape(())
+            i += w
+        return LightRig(point=PointLight(**fields["point"]),
+                        directional=DirectionalLight(**fields["directional"]),
+                        spot=Spotlight(**fields["spot"]))
+
+    def leaves(self) -> list:
+        """The 22 leaves in VECTOR_LAYOUT order."""
+        return [getattr(getattr(self, lt), f) for lt, f, _ in VECTOR_LAYOUT]
+
+    def _tensors(self) -> list:
+        """The leaves that are tensors (one pass over the lights' fields: it
+        runs on every shading call)."""
+        return [v for light in (self.point, self.directional, self.spot)
+                for v in vars(light).values()
+                if not isinstance(v, _HOST) and isinstance(v, torch.Tensor)]
+
+    @property
+    def requires_grad(self) -> bool:
+        return any(v.requires_grad for v in self._tensors())
+
+    @property
+    def on_card(self) -> bool:
+        """True when a leaf is a CUDA tensor."""
+        return any(v.is_cuda for v in self._tensors())
+
     def to_vector(self) -> np.ndarray:
-        """The rig as float32[50] in VECTOR_LAYOUT order (csrc/shade.cu)."""
-        parts = [np.asarray(getattr(getattr(self, lt), f), np.float32).reshape(w)
-                 for lt, f, w in VECTOR_LAYOUT]
+        """The rig as host float32[50] in VECTOR_LAYOUT order (csrc/shade.cu);
+        tensor leaves are read back."""
+        parts = []
+        for lt, f, w in VECTOR_LAYOUT:
+            v = getattr(getattr(self, lt), f)
+            if not isinstance(v, _HOST) and isinstance(v, torch.Tensor):
+                v = v.detach().cpu().numpy()
+            parts.append(np.asarray(v, np.float32).reshape(w))
         return np.concatenate(parts)
+
+    def to_tensor(self, device) -> torch.Tensor:
+        """The rig as float32[50] in VECTOR_LAYOUT order on ``device``:
+        tensor leaves are stacked there (differentiably, with no read
+        back), host leaves go up with them."""
+        device = torch.device(device)
+        if not self._tensors():
+            return torch.from_numpy(self.to_vector()).to(device)
+        return torch.cat([
+            (v.to(device=device, dtype=torch.float32) if isinstance(v, torch.Tensor)
+             else torch.from_numpy(np.asarray(v, np.float32)).to(device)).reshape(w)
+            for v, (_, _, w) in zip(self.leaves(), VECTOR_LAYOUT)])
 
     def shade(self, n, p, eye, diffuse, specular, shininess, shadow):
         c = shade_point_light(self.point, n, p, eye, diffuse, specular, shininess, shadow)
@@ -213,6 +307,7 @@ __all__ = [
     "Spotlight",
     "LightRig",
     "VECTOR_LAYOUT",
+    "host_leaf",
     "shade_point_light",
     "shade_directional_light",
     "shade_spotlight",

@@ -44,13 +44,21 @@ class MaterialTable:
         return MaterialTable(*(torch.from_numpy(c).to(device) for c in cols))
 
     @staticmethod
-    def from_numpy(obj, device="cpu") -> "MaterialTable":
+    def from_numpy(obj, device="cpu", requires_grad: bool = False) -> "MaterialTable":
         """From any object with ambient/diffuse/specular/shininess arrays
-        (for example the JAX package's MaterialTable)."""
+        (for example the JAX package's MaterialTable), each column a
+        float32 tensor on ``device`` that requires grad when
+        ``requires_grad``."""
         return MaterialTable(*(
             torch.from_numpy(np.array(getattr(obj, k), dtype=np.float32)).to(device)
+            .requires_grad_(requires_grad)
             for k in ("ambient", "diffuse", "specular", "shininess")
         ))
+
+    @property
+    def requires_grad(self) -> bool:
+        return any(c.requires_grad for c in (self.ambient, self.diffuse, self.specular,
+                                               self.shininess))
 
     @property
     def num_materials(self) -> int:
@@ -68,7 +76,9 @@ class MaterialTable:
 
     def lookup(self, material_id):
         """Per-ray material params; ids are clipped to the table, and id 0
-        (and misses) give black."""
+        (and misses) give black.  A plain row index, so a table that
+        requires grad gets its gradient summed into the rows here, with no
+        host copy."""
         m = material_id.clamp(0, self.num_materials - 1).long()
         return self.ambient[m], self.diffuse[m], self.specular[m], self.shininess[m]
 

@@ -34,7 +34,7 @@ from ..core.geometry import cube_normal, vp_row
 from ..kernels import Kernel, c_floats, ptr
 from ..ops.march import MarchResult, light_depth_plain, march, march_depth
 from ..world.device import TorchWorld, resolve_device, to_device
-from .lights import LightRig
+from .lights import LightRig, host_leaf
 from .transforms import look_at, ortho
 
 RAY_PREP_KERNEL = Kernel("ort_ray_prep")
@@ -87,8 +87,11 @@ def shadow_bundle(ldir64, H, W, dims, cs, margin: float = 1.1):
 
 def light_dir(lights: LightRig) -> np.ndarray:
     """Unit float32 direction toward the directional light, rounded as the
-    reference's float32 ``-d / max(|d|, 1e-12)``."""
-    l = -np.asarray(lights.directional.direction, dtype=np.float32)
+    reference's float32 ``-d / max(|d|, 1e-12)``.  Read on the host, as the
+    reference's shadow pass reads it: a direction that is a tensor on the
+    card costs one small read back, and no gradient flows through it (the
+    shadow rays' march and the map's compare are not differentiable)."""
+    l = -host_leaf(lights.directional.direction)
     nrm = np.sqrt(np.float32(l[0] * l[0] + l[1] * l[1]) + l[2] * l[2])
     return (l / np.maximum(nrm, np.float32(1e-12))).astype(np.float32)
 
@@ -108,7 +111,7 @@ def _bundle(world: TorchWorld, lights: LightRig, H: int, W: int, margin: float):
     host vp f32[4,4] of the light pass, cached."""
     w, h, d = world.dims
     cs = world.chunksize
-    ldir64 = np.asarray(lights.directional.direction, dtype=np.float64)
+    ldir64 = host_leaf(lights.directional.direction).astype(np.float64)
     ldir64 = ldir64 / np.linalg.norm(ldir64)
     coordmin = world.chunkcoordmin
     key = (ldir64.tobytes(), H, W, (w, h, d), float(cs), float(margin), id(coordmin),

@@ -12,7 +12,9 @@ patch (K7) agree bit for bit; the shading (K2) and the composite forward (K5) to
 (exp, log1p, powf); the composite backward (K6) to rtol 1e-4 / atol 1e-6
 relative to the largest gradient, because its scatter sums in its own order
 (runs, warp groups, block tables, then atomics in run-to-run order)
-(tolerance as in chip_smoke.py)."""
+(tolerance as in chip_smoke.py); K2's VJP (K8) against torch.autograd.grad
+of the plain shading within 1e-3 |plain| + 1e-5 max|plain|, K6's tolerance,
+for the same reason."""
 
 import functools
 
@@ -73,10 +75,14 @@ from octree_raymarcher_tpu_torch.shade import (
 from octree_raymarcher_tpu_torch.shade import shadow as S
 from octree_raymarcher_tpu_torch.ops.march import MarchResult
 from octree_raymarcher_tpu_torch.shade.render import (
+    SHADE_BWD_KERNELS,
     SHADE_KERNEL,
+    SHADE_KERNELS,
     SHADE_MAP_KERNEL,
     SHADE_MAP_TEX_KERNEL,
     SHADE_TEX_KERNEL,
+    SHADE_WIDE_KERNELS,
+    shade_hits_vjp_plain,
 )
 from octree_raymarcher_tpu_torch.world.alloc import (
     CHUNK_BMIN,
@@ -311,6 +317,159 @@ def test_shade_hits_host_tables_upload_nothing(gpu_scene):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("shade_kernel" in x for x in names) == 1, names
     assert not any("HtoD" in x for x in names), names
+
+
+def _random_table(rows: int, seed: int = 0) -> MaterialTable:
+    rng = np.random.default_rng(seed)
+    cols = [rng.uniform(0, 1, (rows, 3)), rng.uniform(0, 1, (rows, 3)),
+            rng.uniform(0, 1, (rows, 3)), rng.uniform(1, 100, rows)]
+    return MaterialTable(*(torch.from_numpy(c.astype(np.float32)) for c in cols))
+
+
+def _rig_grad(rig) -> torch.Tensor:
+    """The gradient of a rig of tensor leaves as its 50 floats (zeros for a
+    leaf the shading does not read)."""
+    return torch.cat([(torch.zeros_like(v) if v.grad is None else v.grad).reshape(-1)
+                      for v in rig.leaves()])
+
+
+def _close_k6(a, b, name):
+    """K6's tolerance: |a - b| <= 1e-3 |b| + 1e-5 max|b|."""
+    scale = float(b.abs().max())
+    bad = int(((a - b).abs() > 1e-3 * b.abs() + 1e-5 * scale).sum())
+    assert bad == 0, (name, bad, float((a - b).abs().max()), scale)
+
+
+def _k8_against_plain(res, o, d, eye, lights, mats, cfg, kw, shadowmap=None, seed=0):
+    """shade_hits with every differentiable input requiring grad (K2's wide
+    instantiation, the rig on the card, then K8, one launch each) against
+    shade_hits_vjp_plain on the same rays."""
+    dev = o.device
+    n = o.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    g_rgb = torch.randn((n, 3), generator=gen, device=dev)
+    g_depth = torch.randn(n, generator=gen, device=dev)
+    rig = LightRig.from_numpy(lights, device=dev, requires_grad=True)
+    table = MaterialTable.from_numpy(mats, device=dev, requires_grad=True)
+    leaves = {"eye": torch.as_tensor(eye, device=dev).clone().requires_grad_(True),
+              "origins": o.clone().requires_grad_(True), "dirs": d.clone().requires_grad_(True)}
+    tex = {k: v.clone().requires_grad_(True) for k, v in kw.items()}
+    key = (shadowmap is not None, bool(kw))
+    counts = (SHADE_KERNELS[key], SHADE_WIDE_KERNELS[key], SHADE_BWD_KERNELS[key])
+    before = tuple(k.launches for k in counts)
+    out = shade_hits(res, leaves["origins"], leaves["dirs"], leaves["eye"], rig, table, cfg,
+                     shadowmap=shadowmap, **tex)
+    torch.autograd.backward([out["rgb"], out["depth"]], [g_rgb, g_depth])
+    assert tuple(k.launches for k in counts) == (before[0], before[1] + 1, before[2] + 1)
+    want = shade_hits_vjp_plain(res, o, d, torch.as_tensor(eye, device=dev), lights, mats,
+                                cfg, g_rgb, g_depth, shadowmap=shadowmap, **kw)
+    got = {"rig": _rig_grad(rig),
+           "diffuse": table.diffuse.grad, "specular": table.specular.grad,
+           "shininess": table.shininess.grad,
+           **{k: v.grad for k, v in leaves.items()}, **{k: v.grad for k, v in tex.items()}}
+    for k, g in got.items():
+        _close_k6(g, want[k].to(dev), k)
+    return got
+
+
+@pytest.mark.parametrize("mode", ["plain", "textured", "map", "map_textured"])
+def test_shade_bwd_kernel_matches_plain(gpu_scene, mode):
+    """K8, in each of K2's four instantiations, against torch.autograd.grad
+    of shade_hits_plain on the scene's rays and the free rays, with random
+    upstream gradients of rgb and depth."""
+    world, o, d, eye, _ = gpu_scene
+    res = march(world, o, d, max_steps=512, device="cuda")
+    kw = {}
+    if "textured" in mode:
+        kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)).cuda(),
+                  envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
+    lights = LightRig.default()
+    shadowmap = None
+    cfg = RenderConfig()
+    if mode.startswith("map"):
+        cfg = RenderConfig(shadow="map")
+        shadowmap = S.render_shadowmap(world, lights, resolution=(256, 256))
+    got = _k8_against_plain(res, o, d, eye, lights, MaterialTable.default(), cfg, kw,
+                            shadowmap)
+    assert float(got["rig"].abs().sum()) > 0 and float(got["diffuse"].abs().sum()) > 0
+
+
+def test_shade_bwd_kernel_one_row_table(gpu_scene):
+    """Every hit on one table row (the hot slot of K8's row sums), textured."""
+    world, o, d, eye, _ = gpu_scene
+    res = march(world, o, d, max_steps=512, device="cuda")
+    kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)).cuda(),
+              envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
+    got = _k8_against_plain(res, o, d, eye, LightRig.default(), _random_table(1), RenderConfig(),
+                            kw, seed=1)
+    assert float(got["shininess"].abs().sum()) > 0
+
+
+@pytest.mark.parametrize("rows,where", [(40, "host"), (300, "card"), (65536, "card")])
+def test_shade_kernel_wide_tables(gpu_scene, rows, where):
+    """K2 with a table past the parameter block's 32 rows (its wide
+    instantiation: the rows by pointer, read per hit through __ldg) against
+    its plain version, ids spread over the table and past both ends; and K8
+    on the same table."""
+    res, o, d, eye = shade_batch(seed=rows)
+    rng = np.random.default_rng(rows)
+    res["material"] = rng.integers(-3, rows + 3, len(o)).astype(np.int32)
+    dev = torch.device("cuda")
+    tres = MarchResult(**{k: torch.from_numpy(v).to(dev) for k, v in res.items()})
+    o, d = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+    mats = _random_table(rows, seed=rows)
+    table = mats.to(dev) if where == "card" else mats
+    cfg = RenderConfig(sky=(0.1, 0.2, 0.3))
+    before = (SHADE_KERNEL.launches, SHADE_WIDE_KERNELS[(False, False)].launches)
+    got = shade_hits(tres, o, d, eye, LightRig.default(), table, cfg)
+    assert (SHADE_KERNEL.launches, SHADE_WIDE_KERNELS[(False, False)].launches) == (
+        before[0], before[1] + 1)
+    ref = shade_hits_plain(tres, o, d, torch.from_numpy(eye).to(dev), LightRig.default(),
+                           mats, cfg)
+    for k in ("rgb", "depth", "point", "normal"):
+        bad = int(((got[k] - ref[k]).abs() > 1e-5 + 1e-4 * ref[k].abs()).sum())
+        assert bad == 0, k
+    _k8_against_plain(tres, o, d, eye, LightRig.default(), mats, cfg, {}, seed=rows)
+
+
+def test_shade_card_rig_matches_host_rig(gpu_scene):
+    """A rig of card tensors (by pointer, the wide instantiation) shades as
+    the host rig (by value) does."""
+    world, o, d, eye, _ = gpu_scene
+    res = march(world, o, d, max_steps=512, device="cuda")
+    kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)).cuda(),
+              envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
+    counts = (SHADE_TEX_KERNEL, SHADE_WIDE_KERNELS[(False, True)])
+    before = tuple(k.launches for k in counts)
+    host = shade_hits(res, o, d, eye, LightRig.default(), MaterialTable.default(),
+                      RenderConfig(), **kw)
+    assert tuple(k.launches for k in counts) == (before[0] + 1, before[1])
+    card = shade_hits(res, o, d, eye, LightRig.from_numpy(LightRig.default(), device="cuda"),
+                      MaterialTable.default(), RenderConfig(), **kw)
+    assert tuple(k.launches for k in counts) == (before[0] + 1, before[1] + 1)
+    for k in ("rgb", "depth", "point", "normal"):
+        assert torch.equal(host[k], card[k]), k
+
+
+def test_shade_no_grad_path_launches_no_bwd(gpu_scene):
+    """With nothing requiring grad, shade_hits launches K2 alone, outside
+    autograd: no K8, no graph, nothing saved."""
+    world, o, d, eye, _ = gpu_scene
+    res = march(world, o, d, max_steps=512, device="cuda")
+    def counts():
+        return (SHADE_KERNEL.launches, sum(k.launches for k in SHADE_WIDE_KERNELS.values()),
+                sum(k.launches for k in SHADE_BWD_KERNELS.values()))
+
+    before = counts()
+    out = shade_hits(res, o, d, eye, LightRig.default(), MaterialTable.default(device="cuda"),
+                     RenderConfig())
+    assert out["rgb"].grad_fn is None and not out["rgb"].requires_grad
+    assert counts() == (before[0] + 1, before[1], before[2])
+    rig = LightRig.from_numpy(LightRig.default(), device="cuda", requires_grad=True)
+    with torch.no_grad():
+        out = shade_hits(res, o, d, eye, rig, MaterialTable.default(), RenderConfig())
+    assert out["rgb"].grad_fn is None
 
 
 def _light_depth_exact(world, o, d, vp, resident):

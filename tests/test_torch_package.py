@@ -108,6 +108,28 @@ def test_multi_gpu_scene_and_guard_modules_import_without_jax():
     assert "BAD []" in out.stdout, out.stdout
 
 
+def test_app_layer_modules_import_without_jax():
+    """The config, the CLI, the fit run, the numpy threefry and the native
+    bridge are walked by the scan above and import in a fresh interpreter
+    with no JAX; importing the bridge builds nothing."""
+    mods = [f"octree_raymarcher_tpu_torch.{m}" for m in (
+        "config", "__main__", "bench_fit", "utils.native", "utils.threefry")]
+    walked = {m.name for m in pkgutil.walk_packages(port.__path__, prefix=port.__name__ + ".")}
+    assert set(mods) <= walked
+    code = (
+        "import importlib, re, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "pat = re.compile(r'^(jax|flax|optax|octree_raymarcher_tpu)(\\.|$)')\n"
+        "from octree_raymarcher_tpu_torch.utils import native\n"
+        "assert native._LIB is None and not native._TRIED\n"
+        "print('BAD', sorted(m for m in sys.modules if pat.match(m)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 @pytest.fixture
 def tiny():
     """A small world, its packed pools, and a few rays."""
@@ -188,12 +210,13 @@ def test_ctypes_signatures_match_sources():
 
 
 def test_table_layouts_match_shade_kernel():
-    """The light-vector slots and material-row columns that shade.cu reads
-    are where LightRig.to_vector and MaterialTable.to_matrix put them."""
+    """The light-vector slots and material-row columns that shade.cuh
+    declares for K2 and K8 are where LightRig.to_vector and
+    MaterialTable.to_matrix put them."""
     from octree_raymarcher_tpu_torch.shade.lights import VECTOR_LAYOUT, LightRig
     from octree_raymarcher_tpu_torch.shade.materials import MaterialTable
 
-    src = (kernels.CSRC / "shade.cu").read_text()
+    src = (kernels.CSRC / "shade.cuh").read_text()
     enum = src[src.index("enum LightSlot"):src.index("};", src.index("enum LightSlot"))]
     slots = sorted(int(v) for v in re.findall(r"= (\d+)", enum))
     offsets = np.cumsum([0] + [w for _, _, w in VECTOR_LAYOUT])

@@ -15,8 +15,11 @@ parameter block, against the JAX package, on the CPU.
 * ``shade_tables``, the host block K2's parameters are packed from, against
   ``LightRig.to_vector`` and ``MaterialTable.to_matrix``, against the JAX
   package's ``LightRig`` and ``MaterialTable`` carried across by
-  ``from_numpy``, and against the slots csrc/shade.cu reads; a table larger
-  than the block raises and is never cut short.
+  ``from_numpy``, and against the slots csrc/shade.cuh declares; an empty
+  table raises, a full one is never cut short.
+* ``shade_hits`` with material tables of 40 and 300 rows (more than the
+  block holds; K2 takes them by pointer) against the JAX ``shade_hits``,
+  ids spread over the table and past both ends.
 """
 
 import re
@@ -44,6 +47,7 @@ from octree_raymarcher_tpu_torch.shade.render import (
     MATERIAL_ROW,
     SHADE_MAX_MATERIALS,
     RenderConfig,
+    shade_hits,
     shade_hits_plain,
     shade_tables,
 )
@@ -144,8 +148,8 @@ def test_shade_tables_from_jax_tables():
 
 def test_shade_block_slots_match_the_kernel():
     """The block offsets and the row capacity the wrapper packs by are the
-    ones csrc/shade.cu reads."""
-    src = (kernels.CSRC / "shade.cu").read_text()
+    ones csrc/shade.cuh declares for K2 and K8."""
+    src = (kernels.CSRC / "shade.cuh").read_text()
     consts = {k: int(v) for k, v in re.findall(r"(kBlock\w+|kMaxMaterials|kLightFloats)"
                                                r" = (\d+)", src)}
     assert consts == {"kBlockEye": BLOCK_EYE, "kBlockSky": BLOCK_SKY,
@@ -156,11 +160,36 @@ def test_shade_block_slots_match_the_kernel():
     assert MaterialTable.default().to_matrix().shape[1] == MATERIAL_ROW
 
 
-@pytest.mark.parametrize("rows", [0, SHADE_MAX_MATERIALS + 1, 64])
+@pytest.mark.parametrize("rows", [0])
 def test_shade_tables_refuse_a_table_too_large(rows):
-    with pytest.raises(ValueError, match=f"1 to {SHADE_MAX_MATERIALS} rows"):
+    with pytest.raises(ValueError, match="at least 1 row"):
         shade_tables(np.zeros(3, np.float32), LightRig.default(), _table(rows),
                      RenderConfig(), "cpu")
+
+
+@pytest.mark.parametrize("rows", [40, 300])
+def test_shade_hits_wide_table_matches_jax(rows):
+    """A table past the parameter block's 32 rows shades as the JAX
+    package's does; ids clip to the table at both ends."""
+    res, o, d, eye = shade_batch(seed=rows)
+    rng = np.random.default_rng(rows + 1)
+    res["material"] = rng.integers(-3, rows + 3, len(o)).astype(np.int32)
+    mats = _table(rows)
+    jmat = JaxMaterialTable(*(jnp.asarray(c.numpy()) for c in
+                              (mats.ambient, mats.diffuse, mats.specular, mats.shininess)))
+    jrig = _jax_rig()
+    ref = jax_shade_hits(JaxMarchResult(**{k: jnp.asarray(v) for k, v in res.items()}),
+                         o, d, jnp.asarray(eye), jrig, jmat, JaxRenderConfig(sky=SKY))
+    got = shade_hits(MarchResult(**{k: torch.from_numpy(v) for k, v in res.items()}),
+                     torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(eye),
+                     LightRig.from_numpy(jrig), mats, RenderConfig(sky=SKY))
+    for k in ("rgb", "depth", "point", "normal"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
+    t = shade_tables(eye, LightRig.default(), mats, RenderConfig(), "cpu")
+    assert t.num_materials == rows and t.block.shape == (BLOCK_ROWS,)
+    for got_c, want in zip(t.columns, (mats.diffuse, mats.specular, mats.shininess)):
+        assert torch.equal(got_c, want)
 
 
 def test_shade_tables_hold_a_full_table():
