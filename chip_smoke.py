@@ -95,7 +95,11 @@ order, and then:
      order), on the shadowless frame plain and textured and on the map
      frame plain and textured (the full frame) with its depth map given:
      each of K8's four instantiations; K8 and the wide K2 as device time in
-     a cold CUDA graph beside K8's bound and its plain version; K2 with
+     a cold CUDA graph beside K8's bound and its plain version; K8's
+     registers, spills and blocks an SM (none spilled and at least two
+     blocks, or the phase fails); a contention batch at 1080p (every hit on
+     one atlas texel, every miss on one set of four sky taps) against the
+     plain VJP and timed; K2 with
      material tables of 40, 300, 2,048, 8,192 and 65,536 rows (each hit's
      row read from the columns) within phase 5's tolerance of
      shade_hits_plain and timed; then
@@ -922,12 +926,15 @@ def phase_grad(world, rf, O, D, eye, atlas, env, smap, zero_counts, read_counts,
     (torch.autograd.grad of shade_hits_plain) on the bench frame,
     shadowless plain and textured and map-shadowed plain and textured with
     the light's depth map given; K8's device time in a cold CUDA graph
-    beside its bound and K2's; K2 with tables of 40 to 65,536 rows against
+    beside its bound and K2's, its ptxas and occupancy, and the contention
+    batch; K2 with tables of 40 to 65,536 rows against
     shade_hits_plain; then the port's command line: render at 640x360 and a
     3-step fit, each in a subprocess.  Returns, per case, the launches, the
     errors, the times and K8's bound."""
     import tempfile
 
+    from octree_raymarcher_tpu_torch import kernels
+    from octree_raymarcher_tpu_torch.ops.march import MarchResult
     from octree_raymarcher_tpu_torch.shade import LightRig, MaterialTable, RenderConfig
     from octree_raymarcher_tpu_torch.shade.render import (
         ShadeTables,
@@ -1061,6 +1068,83 @@ def phase_grad(world, rf, O, D, eye, atlas, env, smap, zero_counts, read_counts,
               f"pointer {t['K2 wide']:.4f} ms (by value {k2_fwd_ms[name]:.4f}), plain K8 "
               f"(autograd of shade_hits_plain) {t['plain']:.2f} ms"
               for name, t in result.items()), flush=True)
+    # K8's registers and spills (ptxas) and the blocks of 256 threads an SM
+    # they and its shared memory allow: the rig and eye columns (53 x 256
+    # floats), the staged rows (7 floats a row) and 208 static bytes; 64 K
+    # registers (allocated 8 a thread at a time) and 228 KB an SM, 1 KB of it
+    # reserved a block
+    report = ptxas_report(kernels.build_log())
+    for name, (c, kw, sm, _, _) in cases.items():
+        info = report[f"shade_bwd_kernel<{int(sm is not None)},{int(bool(kw))}>"]
+        regs = int(re.search(r"Used (\d+) registers", info).group(1))
+        spills = re.search(r"(\d+) bytes spill stores", info).group(1)
+        smem = 53 * 256 * 4 + mats.num_materials * 7 * 4 + 208
+        blocks = min(65536 // (-(-regs // 8) * 8 * 256), 233472 // (smem + 1024))
+        result[name].update(regs=regs, spills=int(spills), blocks_per_sm=blocks)
+    print("phase 13 K8 ptxas and occupancy: " + "; ".join(
+        f"{name}: {t['regs']} registers, {t['spills']} bytes spilled, {t['blocks_per_sm']} "
+        f"blocks of 256 an SM" for name, t in result.items()), flush=True)
+    for name, t in result.items():
+        if t["spills"] or t["blocks_per_sm"] < 2:
+            fail(f"K8 ({name}) spills {t['spills']} bytes or fits {t['blocks_per_sm']} blocks")
+
+    # the contention batch: the textured K8 at 1080p on warps that alternate
+    # all hit and all miss, every hit on one atlas texel (the top face of
+    # the unit cell at the origin, material 3) and every miss on one
+    # bilinear cell of the sky map (the same four taps), jittered inside
+    # them; held to the plain VJP and timed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    hit_c = (torch.arange(n, device=dev) // 32) % 2 == 0
+    res_r = atlas.shape[1]
+    jit = (torch.rand((n, 2), generator=gen, device=dev) - 0.5) * 0.6
+    pc = torch.stack([1.0 - (5.5 + jit[:, 0]) / res_r, torch.ones(n, device=dev),
+                      1.0 - (7.5 + jit[:, 1]) / res_r], 1)
+    down = torch.cat([(torch.rand((n, 1), generator=gen, device=dev) - 0.5) * 0.6,
+                      -torch.ones((n, 1), device=dev),
+                      (torch.rand((n, 1), generator=gen, device=dev) - 0.5) * 0.6], 1)
+    h_e, w_e = env.shape[0], env.shape[1]
+    xs = 40.25 + (torch.rand(n, generator=gen, device=dev) - 0.5) * 0.2
+    ys = 20.25 + (torch.rand(n, generator=gen, device=dev) - 0.5) * 0.2
+    phi = ((xs + 0.5) / w_e - 0.5) * 2.0 * np.pi
+    theta = (ys + 0.5) / h_e * np.pi
+    sky_d = torch.stack([torch.sin(theta) * torch.cos(phi), torch.cos(theta),
+                         torch.sin(theta) * torch.sin(phi)], 1)
+    dc = torch.where(hit_c[:, None], down, sky_d)
+    dc = (dc / dc.norm(dim=1, keepdim=True)).contiguous()
+    tc = 2.0 + 18.0 * torch.rand(n, generator=gen, device=dev)
+    oc = torch.where(hit_c[:, None], pc - dc * (tc - 1.0 / 4096.0)[:, None],
+                     torch.rand((n, 3), generator=gen, device=dev)).contiguous()
+    rc = MarchResult(hit=hit_c, t=torch.where(hit_c, tc, torch.inf).contiguous(),
+                     material=torch.where(hit_c, 3, 0).to(torch.int32),
+                     cell_bmin=torch.zeros((n, 3), device=dev),
+                     cell_size=torch.ones(n, device=dev),
+                     steps=torch.zeros(n, dtype=torch.int32, device=dev),
+                     texel=torch.full((n,), -1, dtype=torch.int32, device=dev))
+    g_rgb = torch.randn((n, 3), generator=gen, device=dev)
+    g_depth = torch.randn(n, generator=gen, device=dev)
+    want = shade_hits_vjp_plain(rc, oc, dc, eye, lights, mats, cfg, g_rgb, g_depth, **tex)
+    got = _shade_bwd_launch(rc, oc, dc, eye, rig_v, cols, cfg, g_rgb, g_depth, **tex,
+                            want_o=True, want_d=True)
+    torch.cuda.synchronize()
+    bad, cerr = 0, 0.0
+    for k in keys:
+        b, err, _ = _grad_close(got[k], want[k])
+        bad, cerr = bad + b, max(cerr, err)
+    texels_c = int((got["atlas"].abs().sum(-1) > 0).sum())
+    taps_c = int((got["envmap"].abs().sum(-1) > 0).sum())
+    if bad or (texels_c, taps_c) != (1, 4):
+        fail(f"K8 on the contention batch: {bad} values beyond the tolerance, {texels_c} "
+             f"texels and {taps_c} taps with a gradient (want 1 and 4)")
+    contention_ms = cold_graph_ms(
+        lambda r, o, d, gr, gd: _shade_bwd_launch(r, o, d, eye, rig_v, cols, cfg, gr, gd, **tex),
+        (rc, oc, dc, g_rgb, g_depth), TIMED_ITERS)
+    print(f"phase 13 K8 contention batch (1080p, every hit on one atlas texel, every miss on "
+          f"one set of four sky taps): max abs err vs plain {cerr}, values "
+          f"beyond 1e-3|plain| + 1e-5 max|plain| 0; device ms a launch in a cold CUDA graph "
+          f"{contention_ms:.4f} (the textured frame's {result['none textured']['K8']:.4f})",
+          flush=True)
+    del rc, oc, dc, g_rgb, g_depth, want, got
 
     # K2 with tables past the parameter block: by pointer, each hit's row
     # read from the columns through __ldg, ids spread over the table and

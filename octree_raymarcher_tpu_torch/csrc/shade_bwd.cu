@@ -18,18 +18,31 @@
 // do: a face normal perpendicular to the directional light makes n.l
 // exactly 0 on every such face.
 //
-// Accumulation is what is hard: every ray adds into the same 53 floats (the
-// rig and the eye) and a few table rows, and neighbouring rays into the
-// same atlas texels and sky taps.  So (PERF.md, "Atomics on hot slots"):
-// * the rig and the eye are summed per warp with shuffles into the warp's
-//   row of a shared-memory table, and per block at the end into 53 global
-//   atomics a block;
-// * the table's 7 gradient floats a row are summed per warp over the lanes
-//   that share a row, and per block in shared memory while M * 7 floats fit
-//   (about 1,690 rows), flushed once a block; past that the warp sums go to
-//   global atomics;
-// * atlas texels and sky taps are summed per warp over the lanes that share
-//   one (one pass per distinct key of the warp), then one atomic a key.
+// What bounds it on this card is instruction issue, not bytes: a hit runs
+// ~900 float operations (K2's forward again and its reverse) on ~64 bytes.
+// So the design spends no instruction a ray on what can wait (PERF.md §6
+// has the variants each choice was measured against):
+// * the rig and the eye (53 floats every hit adds to) sum in per-thread
+//   columns of shared memory, [53][threads] with the thread the fast index
+//   (no bank conflicts, no atomics), reduced by warps once, after the loop,
+//   into 53 global atomics a block; they hold no registers in the loop;
+// * a keyed scatter (the table row, the atlas texel, the sky taps) groups
+//   the warp's lanes by key in one __match_any_sync, sums every group at
+//   once by a segmented shuffle reduction over its peer mask (at most five
+//   rounds), and every group's lowest lane issues its atomics in the same
+//   instruction;
+// * the table's 7 gradient floats a row go to a block table in shared
+//   memory while it fits (flushed once a block), else to global atomics;
+// * a hit's atlas texel and a miss's first sky tap share one scatter pass,
+//   the other three taps take one each; their sums go to global atomics
+//   (holding the two tables in a thread-block cluster's shared memory and
+//   adding through distributed shared memory ran 18% slower on the
+//   textured 1080p frame on an H100);
+// * a miss loads what its outcome needs: nothing but its hit byte in an
+//   untextured frame, its direction and upstream rgb under a sky map;
+// * two blocks of 256 threads an SM (__launch_bounds__(256, 2): at most 128
+//   registers, and no spills): a hit reloads its row and its atlas texel
+//   for the reverse rather than keeping them live through the lights.
 // Float atomics make the sums' order, and so their last bits, vary from
 // run to run; the rest is exact to the forward's arithmetic.
 
@@ -83,6 +96,16 @@ struct ShadeBwdArgs {
     float* g_o;               // nullable: [N, 3], written
     float* g_d;               // nullable: [N, 3], written
     int rows_in_smem;
+    // The texel gradients' key space: the atlas's texels (when g_atlas),
+    // then the sky map's (when g_env).
+    int64_t atlas_texels, texels;
+};
+
+// One thread's column of the rig and eye sums: acc[i] is the thread's
+// float i, kBwdThreads floats from float i - 1.
+struct Acc {
+    float* p;
+    __device__ __forceinline__ float& operator[](int i) const { return p[i * kBwdThreads]; }
 };
 
 // d max(x, c) / dx with jnp.maximum's tie rule.
@@ -113,7 +136,7 @@ __device__ __forceinline__ V3 length_bwd(float g, V3 u, float len) {
     return len > 0.0f ? scale(u, g / len) : V3{0.0f, 0.0f, 0.0f};
 }
 
-__device__ __forceinline__ void add3(float* acc, int i, V3 v) {
+__device__ __forceinline__ void add3(Acc acc, int i, V3 v) {
     acc[i] += v.x;
     acc[i + 1] += v.y;
     acc[i + 2] += v.z;
@@ -157,7 +180,7 @@ __device__ __forceinline__ V3 blinn_bwd(const BlinnFwd& f, V3 n, V3 v, float shi
 
 // Reverse of light_terms: gA is the cotangent of amb, gDS that of diff and
 // of spec; adds the rig's, the colours' and d's and s's cotangents.
-__device__ __forceinline__ void terms_bwd(const float* L, float* acc, int amb, int dif, int spec,
+__device__ __forceinline__ void terms_bwd(const float* L, Acc acc, int amb, int dif, int spec,
                                           V3 gA, V3 gDS, float d, float s, V3 diffuse,
                                           V3 specular, float lit, V3& g_diffuse, V3& g_specular,
                                           float& g_d, float& g_s) {
@@ -176,7 +199,7 @@ __device__ __forceinline__ void terms_bwd(const float* L, float* acc, int amb, i
 
 // Reverse of att = 1 / (kc + kl*dist + kq*dist*dist): adds kc's, kl's and
 // kq's cotangents, returns dist's.
-__device__ __forceinline__ float att_bwd(const float* L, float* acc, int kc, float g_att,
+__device__ __forceinline__ float att_bwd(const float* L, Acc acc, int kc, float g_att,
                                          float att, float dist) {
     const float g_den = -g_att * att * att;
     acc[kc] += g_den;
@@ -191,87 +214,97 @@ __device__ __forceinline__ float warp_sum(float v) {
     return v;
 }
 
-// Every lane of the warp calls this together: the lanes that share a key
+// Every lane of the warp calls this together.  The lanes that share a key
 // (>= 0) sum their kN values, and the lowest of them calls add(key, j, sum)
-// once a value.  One pass per distinct key of the warp.
+// once a value; the other lanes' v is clobbered.  The lanes are grouped by
+// key in one __match_any_sync and every group is reduced at once: round k
+// adds to each lane the partial sum of the next lane of its group still in
+// play and retires the lanes whose rank in the group has bit k set, so a
+// group of g lanes takes ceil(log2 g) rounds, and distinct keys none.  All
+// the groups' leaders then add in the same instruction.
 template <int kN, typename Add>
-__device__ __forceinline__ void warp_scatter(long long key, const float* v, Add add) {
+__device__ __forceinline__ void warp_scatter(long long key, float (&v)[kN], Add add) {
+    const unsigned active = __ballot_sync(kFull, key >= 0);
+    if (key < 0) return;
     const int lane = threadIdx.x & 31;
-    unsigned todo = __ballot_sync(kFull, key >= 0);
-    while (todo) {
-        const int leader = __ffs(todo) - 1;
-        const long long k = __shfl_sync(kFull, key, leader);
-        const unsigned peers = __ballot_sync(kFull, key == k);
-        todo &= ~peers;
-        if (__popc(peers) == 1) {
-            if (lane == leader) {
+    const unsigned peers = __match_any_sync(active, key);
+    const unsigned below = (1u << lane) - 1u;
+    unsigned rank = __popc(peers & below);
+    unsigned above = peers & ~(below | (1u << lane));
+    while (__any_sync(active, above != 0u)) {
+        const int next = __ffs(above) - 1;
 #pragma unroll
-                for (int j = 0; j < kN; ++j) add(k, j, v[j]);
-            }
-        } else {
-#pragma unroll
-            for (int j = 0; j < kN; ++j) {
-                const float s = warp_sum(key == k ? v[j] : 0.0f);
-                if (lane == leader) add(k, j, s);
-            }
+        for (int j = 0; j < kN; ++j) {
+            const float u = __shfl_sync(active, v[j], next < 0 ? lane : next);
+            if (next >= 0) v[j] += u;
         }
+        above &= ~__ballot_sync(active, rank & 1u);
+        rank >>= 1;
+    }
+    if ((peers & below) == 0u) {
+#pragma unroll
+        for (int j = 0; j < kN; ++j) add(key, j, v[j]);
     }
 }
 
 template <bool kMap, bool kTex>
-__global__ void __launch_bounds__(kBwdThreads) shade_bwd_kernel(const __grid_constant__ ShadeBwdArgs a) {
+__global__ void __launch_bounds__(kBwdThreads, 2) shade_bwd_kernel(const __grid_constant__ ShadeBwdArgs a) {
     extern __shared__ float bwd_smem[];
-    float* wacc = bwd_smem;                            // [kBwdWarps][kAcc]
-    float* rows = bwd_smem + kBwdWarps * kAcc;         // [M][kRowGrad] when rows_in_smem
+    const int M = a.num_materials;
+    float* const cols = bwd_smem;                                   // [kAcc][kBwdThreads]
+    float* const rows = cols + kAcc * kBwdThreads;                  // [M][kRowGrad]
     __shared__ float L[kLightFloats];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int M = a.num_materials;
     for (int i = threadIdx.x; i < kLightFloats; i += blockDim.x) L[i] = __ldg(a.rig + i);
-    const int nsm = kBwdWarps * kAcc + (a.rows_in_smem ? M * kRowGrad : 0);
+    const int nsm = kAcc * kBwdThreads + (a.rows_in_smem ? M * kRowGrad : 0);
     for (int i = threadIdx.x; i < nsm; i += blockDim.x) bwd_smem[i] = 0.0f;
     __syncthreads();
+    const Acc acc{cols + threadIdx.x};
+
+    // add(t, j, s): channel j of texel t of the atlas-then-sky key space
+    auto texel_add = [&](long long t, int j, float s) {
+        if (t < a.atlas_texels) {
+            atomicAdd(a.g_atlas + 3 * t + j, s);
+        } else {
+            atomicAdd(a.g_env + 3 * (t - a.atlas_texels) + j, s);
+        }
+    };
 
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < a.n; base += stride) {
         const int64_t r = base + threadIdx.x;
-        float acc[kAcc];
-#pragma unroll
-        for (int i = 0; i < kAcc; ++i) acc[i] = 0.0f;
-        long long row_key = -1, tex_key = -1;
+        long long row_key = -1;
         float rg[kRowGrad] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-        float tg[3] = {0.0f, 0.0f, 0.0f};
-        long long env_key[4] = {-1, -1, -1, -1};
+        // the texel keys: tap 0 is a hit's atlas texel or a miss's first sky
+        // tap, taps 1-3 a miss's other sky taps
+        long long tex_key[4] = {-1, -1, -1, -1};
+        float tv[3] = {0.0f, 0.0f, 0.0f};
         float env_w[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         V3 Gr = {0.0f, 0.0f, 0.0f};
 
         if (r < a.n) {
-            const bool hit = a.hit[r] != 0;
-            const V3 o = ld3(a.o + 3 * r);
-            const V3 b = ld3(a.dirs + 3 * r);
-            if (a.g_rgb != nullptr) Gr = ld3(a.g_rgb + 3 * r);
-            V3 g_p = {0.0f, 0.0f, 0.0f};
-            V3 g_b = {0.0f, 0.0f, 0.0f};
-            float t_hit = 0.0f;
-            if (hit) {
+            if (a.hit[r] != 0) {
+                const V3 o = ld3(a.o + 3 * r);
+                const V3 b = ld3(a.dirs + 3 * r);
+                if (a.g_rgb != nullptr) Gr = ld3(a.g_rgb + 3 * r);
+                V3 g_p = {0.0f, 0.0f, 0.0f};
                 // ---- K2's forward for a hit -----------------------------------
                 const V3 cmin = ld3(a.cell_bmin + 3 * r);
                 const float csz = a.cell_size[r];
-                t_hit = a.t[r];
+                const float t_hit = a.t[r];
                 const V3 p = add(o, scale(b, t_hit - kEps));
                 const V3 cmax = {cmin.x + csz, cmin.y + csz, cmin.z + csz};
                 const V3 n = cube_normal(p, cmin, cmax);
                 const int mat = a.material[r];
                 const int mi = clampi(mat, 0, M - 1);
-                const V3 dif0 = ld3(a.mat_diffuse + 3 * mi);
-                const V3 spec0 = ld3(a.mat_specular + 3 * mi);
                 const float shin = __ldg(a.mat_shininess + mi);
-                V3 diffuse = dif0, specular = spec0;
-                V3 raw = {0.0f, 0.0f, 0.0f}, texg = {1.0f, 1.0f, 1.0f};
+                V3 diffuse = ld3(a.mat_diffuse + 3 * mi), specular = ld3(a.mat_specular + 3 * mi);
+                V3 texg = {1.0f, 1.0f, 1.0f};
                 long long lin = -1;
                 if constexpr (kTex) {
                     if (a.atlas != nullptr) {
                         lin = atlas_lin(p, cmin, cmax, mat, a.atlas_res, a.atlas_materials);
-                        raw = ld3(a.atlas + 3 * lin);
+                        const V3 raw = ld3(a.atlas + 3 * lin);
                         texg = {decode_gamma(raw.x, a.gamma), decode_gamma(raw.y, a.gamma),
                                 decode_gamma(raw.z, a.gamma)};
                         diffuse = mul(diffuse, texg);
@@ -383,73 +416,100 @@ __global__ void __launch_bounds__(kBwdThreads) shade_bwd_kernel(const __grid_con
                 g_p = sub(g_p, g_vraw);
                 V3 g_dif0 = g_diffuse, g_spec0 = g_specular;
                 if (lin >= 0) {
+                    // the row's colours and the raw texel, loaded again: not
+                    // kept live through the lights
+                    const V3 dif0 = ld3(a.mat_diffuse + 3 * mi);
+                    const V3 spec0 = ld3(a.mat_specular + 3 * mi);
+                    const V3 raw = ld3(a.atlas + 3 * lin);
                     g_dif0 = mul(g_diffuse, texg);
                     g_spec0 = mul(g_specular, texg);
                     const V3 g_tex = add(mul(g_diffuse, dif0), mul(g_specular, spec0));
                     const float gm1 = a.gamma - 1.0f;
-                    tg[0] = g_tex.x * (a.gamma * powf(fmaxf(raw.x, 1e-6f), gm1)) *
+                    tv[0] = g_tex.x * (a.gamma * powf(fmaxf(raw.x, 1e-6f), gm1)) *
                             dmax(raw.x, 1e-6f);
-                    tg[1] = g_tex.y * (a.gamma * powf(fmaxf(raw.y, 1e-6f), gm1)) *
+                    tv[1] = g_tex.y * (a.gamma * powf(fmaxf(raw.y, 1e-6f), gm1)) *
                             dmax(raw.y, 1e-6f);
-                    tg[2] = g_tex.z * (a.gamma * powf(fmaxf(raw.z, 1e-6f), gm1)) *
+                    tv[2] = g_tex.z * (a.gamma * powf(fmaxf(raw.z, 1e-6f), gm1)) *
                             dmax(raw.z, 1e-6f);
-                    tex_key = lin;
+                    if (a.g_atlas != nullptr) tex_key[0] = lin;
                 }
                 row_key = mi;
                 rg[0] = g_dif0.x; rg[1] = g_dif0.y; rg[2] = g_dif0.z;
                 rg[3] = g_spec0.x; rg[4] = g_spec0.y; rg[5] = g_spec0.z;
                 rg[6] = g_shin;
-            } else if constexpr (kTex) {
-                // ---- a miss: the sky map's bilinear taps ---------------------------
-                if (a.envmap != nullptr) {
-                    const SkyCoords c = sky_coords(b, a.env_h, a.env_w);
-                    const float gx = 1.0f - c.fx, gy = 1.0f - c.fy;
-                    env_key[0] = c.i00; env_key[1] = c.i01;
-                    env_key[2] = c.i10; env_key[3] = c.i11;
-                    env_w[0] = gx * gy; env_w[1] = c.fx * gy;
-                    env_w[2] = gx * c.fy; env_w[3] = c.fx * c.fy;
-                    if (a.g_d != nullptr) {
-                        const V3 c00 = ld3(a.envmap + 3 * c.i00);
-                        const V3 c01 = ld3(a.envmap + 3 * c.i01);
-                        const V3 c10 = ld3(a.envmap + 3 * c.i10);
-                        const V3 c11 = ld3(a.envmap + 3 * c.i11);
-                        const float g_fx = dot(Gr, add(scale(sub(c01, c00), gy),
-                                                       scale(sub(c11, c10), c.fy)));
-                        const float g_fy = dot(Gr, add(scale(sub(c10, c00), gx),
-                                                       scale(sub(c11, c01), c.fx)));
-                        const float g_u = g_fx * (float)a.env_w / (2.0f * kPi);
-                        const float g_vv = g_fy * (float)a.env_h / kPi;
-                        V3 g_nd = {0.0f, 0.0f, 0.0f};
-                        const float den = c.nd.x * c.nd.x + c.nd.z * c.nd.z;
-                        if (den > 0.0f) {
-                            g_nd.x = -g_u * c.nd.z / den;
-                            g_nd.z = g_u * c.nd.x / den;
+                if (a.g_o != nullptr) {
+                    a.g_o[3 * r] = g_p.x;
+                    a.g_o[3 * r + 1] = g_p.y;
+                    a.g_o[3 * r + 2] = g_p.z;
+                }
+                if (a.g_d != nullptr) {
+                    const float s = t_hit - kEps;
+                    a.g_d[3 * r] = g_p.x * s;
+                    a.g_d[3 * r + 1] = g_p.y * s;
+                    a.g_d[3 * r + 2] = g_p.z * s;
+                }
+            } else {
+                // ---- a miss: the sky map's bilinear taps, or nothing -------------
+                V3 g_b = {0.0f, 0.0f, 0.0f};
+                if constexpr (kTex) {
+                    if (a.envmap != nullptr && a.g_rgb != nullptr &&
+                        (a.g_env != nullptr || a.g_d != nullptr)) {
+                        const V3 b = ld3(a.dirs + 3 * r);
+                        Gr = ld3(a.g_rgb + 3 * r);
+                        const SkyCoords c = sky_coords(b, a.env_h, a.env_w);
+                        const float gx = 1.0f - c.fx, gy = 1.0f - c.fy;
+                        if (a.g_env != nullptr) {
+                            tex_key[0] = a.atlas_texels + c.i00;
+                            tex_key[1] = a.atlas_texels + c.i01;
+                            tex_key[2] = a.atlas_texels + c.i10;
+                            tex_key[3] = a.atlas_texels + c.i11;
+                            env_w[0] = gx * gy; env_w[1] = c.fx * gy;
+                            env_w[2] = gx * c.fy; env_w[3] = c.fx * c.fy;
+                            tv[0] = Gr.x * env_w[0];
+                            tv[1] = Gr.y * env_w[0];
+                            tv[2] = Gr.z * env_w[0];
                         }
-                        const float s2 = 1.0f - c.cy * c.cy;
-                        if (s2 > 0.0f) g_nd.y = -g_vv / sqrtf(s2) * dclip(c.nd.y, -1.0f, 1.0f);
-                        g_b = normalize_bwd(g_nd, b);
+                        if (a.g_d != nullptr) {
+                            const V3 c00 = ld3(a.envmap + 3 * c.i00);
+                            const V3 c01 = ld3(a.envmap + 3 * c.i01);
+                            const V3 c10 = ld3(a.envmap + 3 * c.i10);
+                            const V3 c11 = ld3(a.envmap + 3 * c.i11);
+                            const float g_fx = dot(Gr, add(scale(sub(c01, c00), gy),
+                                                           scale(sub(c11, c10), c.fy)));
+                            const float g_fy = dot(Gr, add(scale(sub(c10, c00), gx),
+                                                           scale(sub(c11, c01), c.fx)));
+                            const float g_u = g_fx * (float)a.env_w / (2.0f * kPi);
+                            const float g_vv = g_fy * (float)a.env_h / kPi;
+                            V3 g_nd = {0.0f, 0.0f, 0.0f};
+                            const float den = c.nd.x * c.nd.x + c.nd.z * c.nd.z;
+                            if (den > 0.0f) {
+                                g_nd.x = -g_u * c.nd.z / den;
+                                g_nd.z = g_u * c.nd.x / den;
+                            }
+                            const float s2 = 1.0f - c.cy * c.cy;
+                            if (s2 > 0.0f) {
+                                g_nd.y = -g_vv / sqrtf(s2) * dclip(c.nd.y, -1.0f, 1.0f);
+                            }
+                            g_b = normalize_bwd(g_nd, b);
+                        }
                     }
                 }
-            }
-            if (a.g_o != nullptr) {
-                a.g_o[3 * r] = g_p.x;
-                a.g_o[3 * r + 1] = g_p.y;
-                a.g_o[3 * r + 2] = g_p.z;
-            }
-            if (a.g_d != nullptr) {
-                const float s = t_hit - kEps;
-                a.g_d[3 * r] = g_p.x * s + g_b.x;
-                a.g_d[3 * r + 1] = g_p.y * s + g_b.y;
-                a.g_d[3 * r + 2] = g_p.z * s + g_b.z;
+                // a miss's point is o + d * (0 - eps) with no gradient
+                // reaching it: g_o is 0 and g_d is the sky's alone
+                if (a.g_o != nullptr) {
+                    a.g_o[3 * r] = 0.0f;
+                    a.g_o[3 * r + 1] = 0.0f;
+                    a.g_o[3 * r + 2] = 0.0f;
+                }
+                if (a.g_d != nullptr) {
+                    a.g_d[3 * r] = g_b.x;
+                    a.g_d[3 * r + 1] = g_b.y;
+                    a.g_d[3 * r + 2] = g_b.z;
+                }
             }
         }
 
-        // ---- the warp's sums (every lane) ------------------------------------------
-#pragma unroll
-        for (int i = 0; i < kAcc; ++i) {
-            const float s = warp_sum(acc[i]);
-            if (lane == 0) wacc[warp * kAcc + i] += s;
-        }
+        // ---- the keyed scatters (every lane) ----------------------------------------
         if (a.rows_in_smem) {
             warp_scatter<kRowGrad>(row_key, rg, [&](long long k, int j, float s) {
                 atomicAdd(rows + k * kRowGrad + j, s);
@@ -462,30 +522,24 @@ __global__ void __launch_bounds__(kBwdThreads) shade_bwd_kernel(const __grid_con
             });
         }
         if constexpr (kTex) {
-            if (a.g_atlas != nullptr) {
-                warp_scatter<3>(tex_key, tg, [&](long long k, int j, float s) {
-                    atomicAdd(a.g_atlas + 3 * k + j, s);
-                });
-            }
-            if (a.g_env != nullptr) {
-                const float G[3] = {Gr.x, Gr.y, Gr.z};
+            if (a.texels > 0) {
+                warp_scatter<3>(tex_key[0], tv, texel_add);
 #pragma unroll
-                for (int tap = 0; tap < 4; ++tap) {
-                    const float v[3] = {G[0] * env_w[tap], G[1] * env_w[tap], G[2] * env_w[tap]};
-                    warp_scatter<3>(env_key[tap], v, [&](long long k, int j, float s) {
-                        atomicAdd(a.g_env + 3 * k + j, s);
-                    });
+                for (int tap = 1; tap < 4; ++tap) {
+                    float v[3] = {Gr.x * env_w[tap], Gr.y * env_w[tap], Gr.z * env_w[tap]};
+                    warp_scatter<3>(tex_key[tap], v, texel_add);
                 }
             }
         }
     }
 
-    // ---- the block's sums: 53 atomics, and the staged rows ---------------------------
+    // ---- the block's sums: the rig and eye columns, the staged rows ------------------
     __syncthreads();
-    for (int i = threadIdx.x; i < kAcc; i += blockDim.x) {
+    for (int i = warp; i < kAcc; i += kBwdWarps) {
         float s = 0.0f;
-        for (int w = 0; w < kBwdWarps; ++w) s += wacc[w * kAcc + i];
-        if (s != 0.0f) atomicAdd(i < kEye ? a.g_rig + i : a.g_eye + i - kEye, s);
+        for (int k = lane; k < kBwdThreads; k += 32) s += cols[i * kBwdThreads + k];
+        s = warp_sum(s);
+        if (lane == 0 && s != 0.0f) atomicAdd(i < kEye ? a.g_rig + i : a.g_eye + i - kEye, s);
     }
     if (a.rows_in_smem) {
         for (int i = threadIdx.x; i < M * kRowGrad; i += blockDim.x) {
@@ -501,18 +555,26 @@ __global__ void __launch_bounds__(kBwdThreads) shade_bwd_kernel(const __grid_con
 
 template <bool kMap, bool kTex>
 cudaError_t launch_bwd(const ShadeBwdArgs& a, size_t smem, cudaStream_t st) {
+    auto* kernel = shade_bwd_kernel<kMap, kTex>;
+    static size_t smem_allowed = 48 * 1024;   // this instantiation's dynamic shared memory cap
+    cudaError_t err = cudaSuccess;
+    if (smem > smem_allowed) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+        if (err != cudaSuccess) return err;
+        smem_allowed = smem;
+    }
     int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    err = cudaGetDevice(&dev);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, shade_bwd_kernel<kMap, kTex>, kBwdThreads, smem);
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBwdThreads, smem);
     }
     if (err != cudaSuccess) return err;
     const int64_t want = (a.n + kBwdThreads - 1) / kBwdThreads;
     const unsigned blocks =
         (unsigned)std::max<int64_t>(1, std::min<int64_t>(want, (int64_t)sms * std::max(per_sm, 1)));
-    shade_bwd_kernel<kMap, kTex><<<blocks, kBwdThreads, smem, st>>>(a);
+    kernel<<<blocks, kBwdThreads, smem, st>>>(a);
     return cudaSuccess;
 }
 
@@ -579,14 +641,19 @@ int ort_shade_bwd(const void* hit, const void* t, const void* material,
     a.g_env = static_cast<float*>(g_env);
     a.g_o = static_cast<float*>(g_o);
     a.g_d = static_cast<float*>(g_d);
-    const size_t base = ort::kBwdWarps * ort::kAcc * sizeof(float);
+    a.atlas_texels = g_atlas != nullptr ? (int64_t)atlas_materials * atlas_res * atlas_res : 0;
+    a.texels = a.atlas_texels + (g_env != nullptr ? (int64_t)env_h * env_w : 0);
+    // shared memory: the rig and eye columns, and the staged rows while
+    // they fit beside them for two blocks an SM
+    constexpr size_t kBlockBudget = 112 * 1024;
+    const size_t cols = (size_t)ort::kAcc * ort::kBwdThreads * sizeof(float);
     const size_t rows = (size_t)num_materials * ort::kRowGrad * sizeof(float);
-    a.rows_in_smem = base + rows <= 48 * 1024;
-    const size_t smem = base + (a.rows_in_smem ? rows : 0);
+    a.rows_in_smem = cols + rows <= kBlockBudget;
+    const size_t smem = cols + (a.rows_in_smem ? rows : 0);
     if (n > 0) {
-        const cudaStream_t st = static_cast<cudaStream_t>(stream);
         const bool map = shadow_depth != nullptr;
         const bool tex = atlas != nullptr || envmap != nullptr;
+        const cudaStream_t st = static_cast<cudaStream_t>(stream);
         cudaError_t err;
         if (map && tex) {
             err = ort::launch_bwd<true, true>(a, smem, st);

@@ -18,7 +18,8 @@ The frame is differentiable as the reference's is: with respect to the
 light rig, the material table's diffuse, specular and shininess, the atlas,
 the sky map, the eye, and the ray origins and directions with the march
 held fixed (the march, the shadow rays and the map compare carry no
-gradient, as in JAX).  On CUDA tensors, when any of those requires grad,
+gradient, as in JAX); the table's ambient, which the shading never reads,
+gets a zero gradient, as in JAX.  On CUDA tensors, when any of those requires grad,
 :func:`shade_hits` runs an autograd Function whose forward is K2 and whose
 backward is K8 (csrc/shade_bwd.cu); when none does, it runs K2 exactly as
 it would anyway.  On CPU tensors autograd runs through
@@ -105,6 +106,23 @@ def _check_shadow(cfg: RenderConfig) -> None:
         raise ValueError(f"unknown shadow mode {cfg.shadow!r}")
 
 
+class _AmbientLink(torch.autograd.Function):
+    """The identity on ``rgb`` that takes the material table's ``ambient``
+    as an input with a zero gradient.  The shading reads no ambient (the
+    reference looks it up and never uses it), so jax.grad gives it zeros;
+    without this link autograd would leave it out of the graph."""
+
+    @staticmethod
+    def forward(ctx, rgb, ambient):
+        ctx.save_for_backward(ambient)
+        return rgb.clone()
+
+    @staticmethod
+    def backward(ctx, g_rgb):
+        (ambient,) = ctx.saved_tensors
+        return g_rgb, torch.zeros_like(ambient)
+
+
 def shade_hits_plain(res: MarchResult, o, d, eye, lights: LightRig,
                      materials: MaterialTable, cfg: RenderConfig,
                      shadow_factor=None, atlas=None, envmap=None, shadowmap=None) -> dict:
@@ -121,7 +139,8 @@ def shade_hits_plain(res: MarchResult, o, d, eye, lights: LightRig,
     cmax = cmin + res.cell_size[:, None]
     n = cube_normal(p, cmin, cmax)
 
-    _, diffuse, specular, shininess = materials.to(o.device).lookup(res.material)
+    table = materials.to(o.device)
+    _, diffuse, specular, shininess = table.lookup(res.material)
 
     if atlas is not None:
         # Material-indexed tile texture atlas f32[M, R, R, 3], nearest
@@ -146,6 +165,8 @@ def shade_hits_plain(res: MarchResult, o, d, eye, lights: LightRig,
     else:
         sky = torch.tensor(cfg.sky, dtype=torch.float32, device=p.device)
     rgb = torch.where(res.hit[:, None], rgb, sky)
+    if _requires_grad(table.ambient):
+        rgb = _AmbientLink.apply(rgb, table.ambient)
 
     depth = torch.where(res.hit, inverse_depth(length(p - eye)), 1.0)
     return {"rgb": rgb, "depth": depth, "hit": res.hit, "material": res.material,
@@ -347,25 +368,26 @@ def _shade_bwd_launch(res: MarchResult, o, d, eye, rig, columns, cfg: RenderConf
 class _ShadeFunction(torch.autograd.Function):
     """K2 forward, K8 backward.  Differentiable inputs: the rig f32[50],
     the table's diffuse, specular and shininess, the eye f32[3], the rays o
-    and d, the atlas and the sky map; the outputs rgb, depth and point
-    (normal carries none)."""
+    and d, the atlas, the sky map, and the table's ambient (which the
+    shading never reads: its gradient is zeros, as jax.grad gives); the
+    outputs rgb, depth and point (normal carries none)."""
 
     @staticmethod
     def forward(ctx, res, cfg, shadow_factor, shadowmap, rig, diffuse, specular, shininess,
-                eye, o, d, atlas, envmap):
+                eye, o, d, atlas, envmap, ambient):
         block = np.zeros(BLOCK_ROWS, np.float32)
         block[BLOCK_SKY:BLOCK_SKY + 3] = np.asarray(cfg.sky, np.float32)
         tables = ShadeTables(block, eye, (diffuse, specular, shininess), diffuse.shape[0], rig)
         out = _shade_launch(res, o, d, tables, cfg, shadow_factor, atlas, envmap, shadowmap)
         ctx.res, ctx.cfg, ctx.shadow_factor, ctx.shadowmap = res, cfg, shadow_factor, shadowmap
-        ctx.save_for_backward(rig, diffuse, specular, shininess, eye, o, d, atlas, envmap)
+        ctx.save_for_backward(rig, diffuse, specular, shininess, eye, o, d, atlas, envmap, ambient)
         ctx.mark_non_differentiable(out["normal"])
         return out["rgb"], out["depth"], out["point"], out["normal"]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_rgb, g_depth, g_point, _g_normal):
-        rig, diffuse, specular, shininess, eye, o, d, atlas, envmap = ctx.saved_tensors
+        rig, diffuse, specular, shininess, eye, o, d, atlas, envmap, ambient = ctx.saved_tensors
         need = ctx.needs_input_grad
         g = _shade_bwd_launch(
             ctx.res, o, d, eye, rig, (diffuse, specular, shininess), ctx.cfg,
@@ -382,7 +404,8 @@ class _ShadeFunction(torch.autograd.Function):
                 t_hit = torch.where(ctx.res.hit, ctx.res.t, 0.0)
                 g_d = g_d + g_point * (t_hit - EPS)[:, None]
         return (None, None, None, None, g["rig"], g["diffuse"], g["specular"],
-                g["shininess"], g["eye"], g_o, g_d, g["atlas"], g["envmap"])
+                g["shininess"], g["eye"], g_o, g_d, g["atlas"], g["envmap"],
+                torch.zeros_like(ambient) if need[13] else None)
 
 
 def shade_hits(res: MarchResult, origins, dirs, eye, lights: LightRig,
@@ -425,7 +448,7 @@ def shade_hits(res: MarchResult, origins, dirs, eye, lights: LightRig,
     eye_t = to_device(eye, dev).reshape(3).contiguous()
     rgb, depth, point, normal = _ShadeFunction.apply(
         res, cfg, shadow_factor, shadowmap, lights.to_tensor(dev).contiguous(), *columns,
-        eye_t, o, d, atlas, envmap)
+        eye_t, o, d, atlas, envmap, t.ambient)
     return {"rgb": rgb, "depth": depth, "hit": res.hit, "material": res.material,
             "steps": res.steps, "point": point, "normal": normal}
 

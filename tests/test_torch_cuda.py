@@ -76,6 +76,7 @@ from octree_raymarcher_tpu_torch.shade import shadow as S
 from octree_raymarcher_tpu_torch.ops.march import MarchResult
 from octree_raymarcher_tpu_torch.shade.render import (
     SHADE_BWD_KERNELS,
+    SHADE_BWD_TEX_KERNEL,
     SHADE_KERNEL,
     SHADE_KERNELS,
     SHADE_MAP_KERNEL,
@@ -103,7 +104,14 @@ from octree_raymarcher_tpu_torch.world.alloc import (
 from octree_raymarcher_tpu_torch.world.device import TorchWorld
 from octree_raymarcher_tpu_torch.world.world import World
 
-from test_torch_scenes import SCENES, scene_rays, scene_torch, shade_batch, warp_kinds
+from test_torch_scenes import (
+    SCENES,
+    scene_rays,
+    scene_torch,
+    shade_batch,
+    texel_batch,
+    warp_kinds,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -373,26 +381,80 @@ def _k8_against_plain(res, o, d, eye, lights, mats, cfg, kw, shadowmap=None, see
     return got
 
 
-@pytest.mark.parametrize("mode", ["plain", "textured", "map", "map_textured"])
+def _synthetic(batch, dev):
+    res, o, d, eye = batch
+    return (MarchResult(**{k: torch.from_numpy(v).to(dev) for k, v in res.items()}),
+            torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev), eye)
+
+
+@pytest.mark.parametrize("mode", ["plain", "textured", "map", "map_textured", "one_texel",
+                                  "distinct_texels", "large_atlas", "rows_65536"])
 def test_shade_bwd_kernel_matches_plain(gpu_scene, mode):
-    """K8, in each of K2's four instantiations, against torch.autograd.grad
-    of shade_hits_plain on the scene's rays and the free rays, with random
-    upstream gradients of rgb and depth."""
+    """K8 against torch.autograd.grad of shade_hits_plain with random
+    upstream gradients of rgb and depth: in each of K2's four
+    instantiations on the scene's rays and the free rays; on warps whose
+    hits all share one atlas texel and whose misses share four sky taps
+    (the hottest keys of the grouped scatter), and on warps whose lanes
+    all differ (test_torch_scenes.texel_batch, with the bench frame's 32^2
+    atlas and 64x128 sky map); with a 128^2 atlas (1.5 MB of gradient);
+    and with a 65,536-row table."""
+    world, o, d, eye, _ = gpu_scene
+    dev = o.device
+    lights, mats, cfg, shadowmap, kw = (LightRig.default(), MaterialTable.default(),
+                                        RenderConfig(), None, {})
+    if mode in ("one_texel", "distinct_texels"):
+        res, o, d, eye = _synthetic(texel_batch(mode == "distinct_texels"), dev)
+        kw = dict(atlas=torch.from_numpy(default_atlas(resolution=32)).to(dev),
+                  envmap=torch.from_numpy(default_envmap(64, 128)).to(dev))
+    elif mode == "rows_65536":
+        batch = shade_batch(seed=65536)
+        batch[0]["material"] = np.random.default_rng(1).integers(
+            -3, 65536 + 3, len(batch[1])).astype(np.int32)
+        res, o, d, eye = _synthetic(batch, dev)
+        mats = _random_table(65536, seed=2)
+    else:
+        res = march(world, o, d, max_steps=512, device="cuda")
+        if "textured" in mode:
+            kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)).cuda(),
+                      envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
+        if mode == "large_atlas":
+            kw = dict(atlas=torch.from_numpy(default_atlas(resolution=128)).cuda(),
+                      envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
+        if mode.startswith("map"):
+            cfg = RenderConfig(shadow="map")
+            shadowmap = S.render_shadowmap(world, lights, resolution=(256, 256))
+    got = _k8_against_plain(res, o, d, eye, lights, mats, cfg, kw, shadowmap)
+    assert float(got["rig"].abs().sum()) > 0 and float(got["diffuse"].abs().sum()) > 0
+    if mode in ("one_texel", "distinct_texels"):
+        texels = int((got["atlas"].abs().sum(-1) > 0).sum())
+        taps = int((got["envmap"].abs().sum(-1) > 0).sum())
+        assert (texels, taps) == ((32, 128) if mode == "distinct_texels" else (1, 4))
+
+
+def test_shade_bwd_ambient_grad_is_zeros(gpu_scene):
+    """The table's ambient, which the shading never reads, gets a zero
+    gradient through K8's path (jax.grad gives zeros), and asking for it
+    leaves the frame bit for bit as the same path renders it without."""
     world, o, d, eye, _ = gpu_scene
     res = march(world, o, d, max_steps=512, device="cuda")
-    kw = {}
-    if "textured" in mode:
-        kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)).cuda(),
-                  envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
-    lights = LightRig.default()
-    shadowmap = None
-    cfg = RenderConfig()
-    if mode.startswith("map"):
-        cfg = RenderConfig(shadow="map")
-        shadowmap = S.render_shadowmap(world, lights, resolution=(256, 256))
-    got = _k8_against_plain(res, o, d, eye, lights, MaterialTable.default(), cfg, kw,
-                            shadowmap)
-    assert float(got["rig"].abs().sum()) > 0 and float(got["diffuse"].abs().sum()) > 0
+    kw = dict(atlas=torch.from_numpy(default_atlas(resolution=16)).cuda(),
+              envmap=torch.from_numpy(default_envmap(32, 64)).cuda())
+    rig = LightRig.from_numpy(LightRig.default(), device="cuda", requires_grad=True)
+    with_ambient = MaterialTable.from_numpy(MaterialTable.default(), device="cuda",
+                                            requires_grad=True)
+    before = SHADE_BWD_TEX_KERNEL.launches
+    out = shade_hits(res, o, d, eye, rig, with_ambient, RenderConfig(), **kw)
+    loss = torch.mean(out["rgb"] ** 2) + torch.mean(out["depth"])
+    g_ambient, g_diffuse = torch.autograd.grad(loss, [with_ambient.ambient,
+                                                      with_ambient.diffuse])
+    assert SHADE_BWD_TEX_KERNEL.launches == before + 1
+    assert torch.equal(g_ambient, torch.zeros_like(with_ambient.ambient))
+    assert float(g_diffuse.abs().sum()) > 0
+    table = MaterialTable.default(device="cuda")
+    table.diffuse.requires_grad_(True)
+    ref = shade_hits(res, o, d, eye, rig, table, RenderConfig(), **kw)
+    for k in ("rgb", "depth", "point", "normal"):
+        assert torch.equal(out[k], ref[k]), k
 
 
 def test_shade_bwd_kernel_one_row_table(gpu_scene):

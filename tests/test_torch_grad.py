@@ -46,10 +46,11 @@ from octree_raymarcher_tpu.shade.render import render as jax_render
 from octree_raymarcher_tpu.shade.render import render_shadowmap as jax_render_shadowmap
 from octree_raymarcher_tpu.world.world import World as JaxWorld
 from octree_raymarcher_tpu_torch.diff import init_params_from_world, render_soft
+from octree_raymarcher_tpu_torch.ops.march import march
 from octree_raymarcher_tpu_torch.shade import default_envmap
 from octree_raymarcher_tpu_torch.shade.lights import VECTOR_LAYOUT, LightRig
 from octree_raymarcher_tpu_torch.shade.materials import MaterialTable
-from octree_raymarcher_tpu_torch.shade.render import RenderConfig, render
+from octree_raymarcher_tpu_torch.shade.render import RenderConfig, render, shade_hits
 from octree_raymarcher_tpu_torch.world.world import World
 
 SCENE = dict(dims=(2, 1, 2), chunksize=32.0, depth=5, seed=7, water_level=4.0,
@@ -167,6 +168,39 @@ def test_render_grad_matches_jax(scene, shadow, textured):
                     None if env is None else jnp.asarray(env), None, shadow)
     got = _port_grads(tworld, rig, mats, o, d, eye, shadow, atlas, env)
     _assert_grads(got, _reference(jg, textured), got["skip"])
+
+
+@pytest.mark.parametrize("textured", [False, True], ids=["none", "none_textured"])
+def test_ambient_grad_is_zeros_as_jax(scene, textured):
+    """The table's ambient is looked up and never read by the shading:
+    jax.grad of the JAX render gives it zeros, and so do the port's render
+    and shade_hits, asked for it alone (no allow_unused)."""
+    jdev, tworld, o, d, eye = scene
+    rig, mats = _jax_state()
+    atlas = env = None
+    if textured:
+        atlas = jax_default_atlas(resolution=16, seed=0)
+        env = jax_default_envmap(32, 64)
+    jg = _jax_grads(jdev, rig, mats, jnp.asarray(eye), jnp.asarray(o), jnp.asarray(d),
+                    None if atlas is None else jnp.asarray(atlas),
+                    None if env is None else jnp.asarray(env), None, "none")
+    want = np.asarray(jg[1].ambient)
+    assert want.shape == np.asarray(mats.ambient).shape and not want.any()
+    tex = {} if atlas is None else {"atlas": torch.from_numpy(np.asarray(atlas)),
+                                    "envmap": torch.from_numpy(np.asarray(env))}
+    res = march(tworld, torch.from_numpy(o), torch.from_numpy(d), 512, device="cpu")
+    for name in ("render", "shade_hits"):
+        tmats = MaterialTable.from_numpy(mats, requires_grad=True)
+        if name == "render":
+            out = render(tworld, o, d, eye, LightRig.from_numpy(rig), tmats, RenderConfig(),
+                         device="cpu", **tex)
+        else:
+            out = shade_hits(res, o, d, eye, LightRig.from_numpy(rig), tmats, RenderConfig(),
+                             **tex)
+        loss = torch.mean(out["rgb"] ** 2) + torch.mean(out["depth"])
+        (g,) = torch.autograd.grad(loss, [tmats.ambient])
+        assert g.dtype == torch.float32, name
+        np.testing.assert_array_equal(g.numpy(), want, err_msg=name)
 
 
 def test_render_grad_map_with_shadowmap_matches_jax(scene):

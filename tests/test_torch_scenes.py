@@ -174,6 +174,49 @@ def shade_batch(seed: int = 3, groups: int = 12):
     return res, o, d, eye
 
 
+def texel_batch(distinct: bool, warps: int = 64, atlas_res: int = 32, env_hw=(64, 128)):
+    """A march result for the texel gradients' keyed sums: warps (in launch
+    order) alternate between all hit and all miss.  Every hit lies on the
+    top face of the unit cell at the origin with material 3, and every
+    miss looks at one bilinear cell of an ``env_hw`` sky map.  Either every
+    hit samples one atlas texel (of resolution ``atlas_res``) and every miss
+    the same four sky taps (the hottest keys), or, ``distinct``, the 32
+    lanes of a warp take 32 distinct texels and 128 distinct taps.  The
+    points and directions are jittered inside their texel and bilinear
+    cell.  Returns numpy arrays: the MarchResult's fields, origins, dirs and
+    the eye."""
+    rng = np.random.default_rng(12 if distinct else 11)
+    n = 32 * warps
+    lane = np.arange(n) % 32
+    hit = (np.arange(n) // 32) % 2 == 0
+    r = atlas_res
+    ui = lane % r if distinct else np.full(n, 5)
+    vi = lane // r if distinct else np.full(n, 7)
+    # the top face's uv is (1 - x, 1 - z) of the point
+    jit = rng.uniform(-0.3, 0.3, (n, 2))
+    p = np.stack([1.0 - (ui + 0.5 + jit[:, 0]) / r, np.ones(n),
+                  1.0 - (vi + 0.5 + jit[:, 1]) / r], axis=1).astype(np.float32)
+    down = np.stack([rng.uniform(-0.3, 0.3, n), -np.ones(n), rng.uniform(-0.3, 0.3, n)], 1)
+    h, w = env_hw
+    # misses: sky-map coordinates x = u*W - 0.5, y = v*H - 0.5 a quarter
+    # texel into a bilinear cell, four columns apart a lane when distinct
+    x = (4 * lane if distinct else np.full(n, 40)) + 0.25 + rng.uniform(-0.1, 0.1, n)
+    y = 20.25 + rng.uniform(-0.1, 0.1, n)
+    phi = ((x + 0.5) / w - 0.5) * 2.0 * np.pi
+    theta = (y + 0.5) / h * np.pi
+    sky = np.stack([np.sin(theta) * np.cos(phi), np.cos(theta), np.sin(theta) * np.sin(phi)], 1)
+    d = np.where(hit[:, None], down, sky)
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t = rng.uniform(2.0, 20.0, n).astype(np.float32)
+    o = np.where(hit[:, None], p - d * (t - np.float32(1.0 / 4096.0))[:, None],
+                 rng.uniform(-5.0, 5.0, (n, 3))).astype(np.float32)
+    res = {"hit": hit, "t": np.where(hit, t, np.float32(np.inf)).astype(np.float32),
+           "material": np.where(hit, 3, 0).astype(np.int32),
+           "cell_bmin": np.zeros((n, 3), np.float32), "cell_size": np.ones(n, np.float32),
+           "steps": np.zeros(n, np.int32), "texel": np.full(n, -1, np.int32)}
+    return res, o, d, np.float32([0.5, 6.0, -3.0])
+
+
 def warp_kinds(hit) -> dict:
     """The count of all-hit, all-miss and mixed 32-ray warps of a hit mask."""
     w = np.asarray(hit).reshape(-1, 32)

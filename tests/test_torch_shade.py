@@ -20,10 +20,17 @@ parameter block, against the JAX package, on the CPU.
 * ``shade_hits`` with material tables of 40 and 300 rows (more than the
   block holds; K2 takes them by pointer) against the JAX ``shade_hits``,
   ids spread over the table and past both ends.
+* The batches the card tests hold K8's keyed sums to
+  (``test_torch_scenes.texel_batch``): the atlas and sky-map
+  gradients of ``shade_hits_vjp_plain`` against jax.grad of the JAX
+  ``shade_hits`` (rtol 1e-4, atol 1e-6 max|g|: both sum the rays in their
+  own order), on the texel and taps the batch is built to share or keep
+  apart.
 """
 
 import re
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -49,10 +56,11 @@ from octree_raymarcher_tpu_torch.shade.render import (
     RenderConfig,
     shade_hits,
     shade_hits_plain,
+    shade_hits_vjp_plain,
     shade_tables,
 )
 
-from test_torch_scenes import shade_batch, warp_kinds
+from test_torch_scenes import shade_batch, texel_batch, warp_kinds
 
 RTOL = ATOL = 1e-5
 SKY = (0.1, 0.2, 0.3)
@@ -199,3 +207,38 @@ def test_shade_tables_hold_a_full_table():
     assert t.num_materials == SHADE_MAX_MATERIALS
     np.testing.assert_array_equal(t.block[BLOCK_ROWS:].reshape(-1, MATERIAL_ROW),
                                   mats.to_matrix().numpy())
+
+
+@pytest.mark.parametrize("distinct", [False, True], ids=["one_texel", "distinct_texels"])
+def test_texel_batch_keys_and_grads_match_jax(distinct):
+    """The texel batch puts every hit on one atlas texel and every miss on
+    one set of four sky taps, or gives each lane of a warp its own texel and
+    taps; the plain VJP's atlas and sky-map gradients there equal jax.grad
+    of the JAX shade_hits."""
+    res, o, d, eye = texel_batch(distinct)
+    atlas = default_atlas(resolution=32, seed=0)
+    env = default_envmap(64, 128)
+    rng = np.random.default_rng(3)
+    g_rgb = rng.normal(size=(len(o), 3)).astype(np.float32)
+    g_depth = rng.normal(size=len(o)).astype(np.float32)
+    jrig, jmat = JaxLightRig.default(), JaxMaterialTable.default()
+    jres = JaxMarchResult(**{k: jnp.asarray(v) for k, v in res.items()})
+
+    def loss(atlas, env):
+        out = jax_shade_hits(jres, o, d, jnp.asarray(eye), jrig, jmat, JaxRenderConfig(),
+                             atlas=atlas, envmap=env)
+        return jnp.sum(out["rgb"] * g_rgb) + jnp.sum(out["depth"] * g_depth)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(atlas), jnp.asarray(env))
+    got = shade_hits_vjp_plain(
+        MarchResult(**{k: torch.from_numpy(v) for k, v in res.items()}), torch.from_numpy(o),
+        torch.from_numpy(d), torch.from_numpy(eye), LightRig.from_numpy(jrig),
+        MaterialTable.from_numpy(jmat), RenderConfig(), torch.from_numpy(g_rgb),
+        torch.from_numpy(g_depth), atlas=torch.from_numpy(atlas), envmap=torch.from_numpy(env))
+    texels = int((got["atlas"].abs().sum(-1) > 0).sum())
+    taps = int((got["envmap"].abs().sum(-1) > 0).sum())
+    assert (texels, taps) == ((32, 128) if distinct else (1, 4))
+    for k, w in zip(("atlas", "envmap"), want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=1e-4,
+                                   atol=1e-6 * float(np.abs(w).max()), err_msg=k)
