@@ -106,6 +106,27 @@ order, and then:
      the port's command line in subprocesses: render at 640x360 (its
      hit_frac held against the frame's) and a 3-step fit of 2 views at
      64x64 (finite, falling losses).
+ 14. the stage-compacted march and sampler (ops/march_compact.py,
+     diff/segments_compact.py: K9's entry and stage instantiations and the
+     partition K10, csrc/compact.cu): the compacted march of the 2,073,600
+     camera rays, the 2,073,600 shadow rays (live_start) and the 262,144
+     light rays, each bit for bit against K1 on every ray, its coarse steps
+     within their bounds, every field and lane_iters equal to its plain
+     version on all rays, one entry, 20 stages and 20 partitions a call
+     (counters), timed by CUDA events beside K1, its SIMT efficiency against K1's, the live count
+     after each stage and its kernels' device time (torch.profiler); the
+     camera rays' march under other schedules (one stage of 512 iterations,
+     4 of 128, 16 of 32); K9's entry and K10 alone on the first pack against
+     their plain versions beside torch.nonzero of the same flags;
+     render_frame(compact=True) for the shadowless, ray, map and full
+     frames against compact=False on every pixel, both timed; the four
+     compacted frames and the sampler under torch.cuda.set_sync_debug_mode
+     ("error"); render_shadowmap(compact=True) against the light-depth K1;
+     sample_segments_compact at K=32 against K4 and its plain version on
+     every ray, timed beside K4, its lanes per phase; fit(compact=True)
+     against fit (same losses) and a step of each timed; and the launch
+     counters of the compacted paths, zeroed just before and read just
+     after.
 
 Last, one K2 call with its eye and tables on the host is traced by
 torch.profiler: no host-to-device copy may appear.
@@ -117,7 +138,7 @@ the frame reads and the sky's and the atlas decode's operations.
 
 Phase 1 prints the card's name and power limit (nvidia-smi) and ptxas's
 registers, shared memory and spills for every instantiation of K1, K2, K4,
-K7 and K8.  Every phase prints its
+K7, K8, K9 and K10.  Every phase prints its
 lines; any failure raises and the script exits nonzero without printing a
 result.  The line before the last is a JSON object with one entry per
 kernel and per instantiation of K2 and K8 (times, launches and the path
@@ -302,8 +323,8 @@ def ptxas_report(log: str) -> dict:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-            for tag in ("march_kernel", "segments_kernel", "shade_bwd_kernel", "shade_kernel",
-                        "patch_kernel"):
+            for tag in ("compact_entry_kernel", "compact_stage_kernel", "march_kernel",
+                        "segments_kernel", "shade_bwd_kernel", "shade_kernel", "patch_kernel"):
                 if tag in name:
                     args = re.findall(r"L[bi](\d+)E", name.split(tag, 1)[1])
                     name = f"{tag}<{','.join(args)}>"
@@ -1227,6 +1248,280 @@ def phase_grad(world, rf, O, D, eye, atlas, env, smap, zero_counts, read_counts,
     return result
 
 
+def kernel_device_ms(fn, tags: dict) -> dict:
+    """{name: device ms of one call of fn summed over the kernels whose name
+    holds the tag} from torch.profiler (device_breakdown); {} when the trace
+    holds no device time."""
+    _, rows = device_breakdown(fn, top=1000)
+    out = {}
+    for name, tag in tags.items():
+        hits = [ms for key, ms in rows if tag in key]
+        if hits:
+            out[name] = sum(hits)
+    return out
+
+
+def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
+    """Phase 14: the stage-compacted march (K9, K10) on the bench frame's
+    three ray sets, the compacted frames, the compacted sampler and fit, the
+    compacted light pass, and the frames under the sync debug mode."""
+    from octree_raymarcher_tpu_torch.diff import fit
+    from octree_raymarcher_tpu_torch.diff.segments import sample_segments
+    from octree_raymarcher_tpu_torch.diff.segments_compact import (
+        sample_segments_compact,
+        sample_segments_compact_plain,
+    )
+    from octree_raymarcher_tpu_torch.ops import march_compact as MC
+    from octree_raymarcher_tpu_torch.ops.march import march
+    from octree_raymarcher_tpu_torch.shade import render_frame
+    from octree_raymarcher_tpu_torch.shade.shadow import render_shadowmap
+
+    c = ctx
+    world, dev, K = c["world"], c["dev"], c["K"]
+    sched = MC.default_schedule(512, 16)
+    n_stages = len(sched)
+    out = {}
+    # ---- the compacted march on the camera, shadow and light rays -------------------
+    sets = {"camera": (c["O"], c["D"], None, True, c["rk"]),
+            "shadow": (c["start"], c["sdirs"], c["live"], False, c["sk"]),
+            "light": (c["lorig"], c["ldirs"], None, True, c["lk"])}
+    march_rows = {}
+    tags = {"entry": "compact_entry_kernel", "stage": "compact_stage_kernel",
+            "count": "partition_count", "scatter": "partition_scatter"}
+    for name, (o, d, live, resident, ref) in sets.items():
+        kw = dict(live_start=live, assume_resident=resident, device=dev)
+        zero_counts()
+        res, lanes = MC.march_frame_compact(world, o, d, 512, **kw)
+        torch.cuda.synchronize()
+        per_call = {k: v for k, v in read_counts().items() if v}
+        want = {"compact_entry": 1, "compact_stage": n_stages, "partition": n_stages}
+        if per_call != want:
+            fail(f"the compacted {name} march launched {per_call}, want {want}")
+        mism = march_mismatches(res, ref)
+        mism.pop("steps")
+        if max(mism.values()) > 0:
+            fail(f"the compacted {name} march differs from K1: {mism}")
+        exact = ref.steps
+        if not (bool((res.steps >= exact).all())
+                and bool((res.steps <= exact + max(sched)).all())):
+            fail(f"the compacted {name} march's coarse steps leave their bounds")
+        plain_ms, (resp, lanes_p) = cuda_ms_once(
+            lambda: MC.march_frame_compact_plain(world, o, d, 512, live_start=live,
+                                                 assume_resident=resident))
+        pm = march_mismatches(res, resp)
+        err = max_abs(res.t[res.hit], resp.t[res.hit])
+        if max(pm.values()) > 0 or int(lanes) != int(lanes_p):
+            fail(f"the compacted {name} march differs from its plain version: {pm}, "
+                 f"lane_iters {int(lanes)} against {int(lanes_p)}")
+        del resp
+        ms = cuda_ms(lambda: MC.march_frame_compact(world, o, d, 512, **kw), TIMED_ITERS)
+        k1_ms = cuda_ms(lambda: march(world, o, d, 512, live_start=live,
+                                      assume_resident=resident, device=dev), TIMED_ITERS)
+        prof = kernel_device_ms(lambda: MC.march_frame_compact(world, o, d, 512, **kw), tags)
+        st, _ = MC.compact_begin(world, o, d, live_start=live, device=dev)
+        MC.compact_stages(world, st, sched, assume_resident=resident, last=True)
+        MC.compact_finish(world, st)
+        history = [int(v) for v in torch.cat(st.history).tolist()]
+        steps = int(exact.to(torch.int64).sum())
+        eff_c = steps / int(lanes) if int(lanes) else 1.0
+        eff_k1 = simt_efficiency(exact)
+        march_rows[name] = {"ms": ms, "k1_ms": k1_ms, "plain_ms": plain_ms,
+                            "lane_iters": int(lanes), "steps": steps, "eff": eff_c,
+                            "k1_eff": eff_k1, "profile": prof, "history": history,
+                            "n": o.shape[0], "err": err,
+                            "launches": sum(per_call.values())}
+        print(f"phase 14 compacted march, {name} rays ({o.shape[0]}): equal to K1 on every "
+              f"ray (hit, t, material, texel, cell bit for bit), steps within [exact, exact + "
+              f"{max(sched)}], equal to its plain version (lane_iters {int(lanes)}); ms a call "
+              f"(CUDA events, mean of {TIMED_ITERS}; {smi}): {ms:.4f}, K1 {k1_ms:.4f} (plain "
+              f"{plain_ms:.1f}); "
+              f"launches a call {sum(per_call.values())} {per_call}; SIMT efficiency "
+              f"compacted {eff_c:.4f} (sum of steps {steps} / lane_iters), K1 {eff_k1:.4f}; "
+              f"device ms of one call by torch.profiler {prof or 'no device events traced'}; "
+              f"live count after the entry and each stage {history}", flush=True)
+    out["march"] = march_rows
+    O, D = c["O"], c["D"]
+
+    # other schedules on the camera rays: one stage of 512 iterations is one
+    # K1 launch's work in K9, then coarser and finer stages
+    sweep = {}
+    for label, sc in (("1x512", (512,)), ("4x128", (128,) * 4), ("16x32", (32,) * 16),
+                      ("default", sched)):
+        kw = dict(assume_resident=True, schedule=sc, device=dev)
+        res_s, lanes_s = MC.march_frame_compact(world, O, D, 512, **kw)
+        mism = march_mismatches(res_s, c["rk"])
+        mism.pop("steps")
+        if max(mism.values()) > 0:
+            fail(f"the compacted camera march with the schedule {label} differs from K1: {mism}")
+        sweep[label] = {
+            "ms": cuda_ms(lambda: MC.march_frame_compact(world, O, D, 512, **kw), TIMED_ITERS),
+            "lane_iters": int(lanes_s),
+            "profile": kernel_device_ms(lambda: MC.march_frame_compact(world, O, D, 512, **kw),
+                                        tags)}
+    out["sweep"] = sweep
+    print(f"phase 14 compacted camera march by schedule (equal to K1 on every ray; ms a call "
+          f"by CUDA events, lane_iters, device ms by torch.profiler): {sweep}", flush=True)
+
+    # K9's entry and K10 alone on the camera rays' first pack (repeatable calls)
+    n = O.shape[0]
+    res0 = MC._miss_result(n, dev, False)
+    t0 = torch.empty(n, dtype=torch.float32, device=dev)
+    flag0 = torch.empty(n, dtype=torch.uint8, device=dev)
+    rows = MC.Rows.empty(n, dev, True)
+    scratch = MC.partition_scratch(n, dev, False)
+    everyone = torch.full((1,), n, dtype=torch.int64, device=dev)
+    entry_ms = cuda_ms(lambda: MC._entry_launch(world, O, D, None, t0, flag0, res0),
+                       TIMED_ITERS)
+    src = MC.Rows(O, D, t0, None, None)
+    part_ms = cuda_ms(lambda: MC.partition(flag0, src, everyone, rows, block_counts=scratch),
+                      TIMED_ITERS)
+    live_k, _ = MC.partition(flag0, src, everyone, rows, block_counts=scratch)
+    rows_p = MC.Rows.empty(n, dev, True)
+    part_plain_ms, (live_p, _) = cuda_ms_once(
+        lambda: MC.partition_plain(flag0, src, everyone, rows_p))
+    L = int(live_k)
+    if L != int(live_p) or not all(torch.equal(getattr(rows, f)[:L], getattr(rows_p, f)[:L])
+                                   for f in ("o", "d", "t", "orig", "charge")):
+        fail("K10 differs from partition_plain on the camera rays' first pack")
+    t_p, flag_p = MC.entry_plain(world, O, D, None)
+    entry_plain_ms = cuda_ms(lambda: MC.entry_plain(world, O, D, None), 3)
+    if not (torch.equal(t_p[flag_p == 1], t0[flag0 == 1]) and torch.equal(flag_p, flag0)):
+        fail("K9's entry differs from entry_plain on the camera rays")
+    nz_ms = cuda_ms(lambda: torch.nonzero(flag0 == 1), TIMED_ITERS)
+    out["entry"] = {"ms": entry_ms, "plain_ms": entry_plain_ms, "err": max_abs(t_p, t0),
+                    "bound": bound_ms(n * (24 + 4 + 1), 0)}
+    # K10 must read every flag and the rows of the rays it moves (o, d, t),
+    # and write their rows (o, d, t, orig, charge)
+    out["partition"] = {"ms": part_ms, "plain_ms": part_plain_ms, "library_ms": nz_ms,
+                        "err": max_abs(rows.t[:L], rows_p.t[:L]),
+                        "bound": bound_ms(n + L * (28 + 40), 0), "live": L}
+    print(f"phase 14 K9 entry alone (camera rays): {entry_ms:.4f} ms (plain "
+          f"{entry_plain_ms:.3f}); K10 alone on the first pack ({n} flags, {L} live): "
+          f"{part_ms:.4f} ms (plain {part_plain_ms:.3f}), bound "
+          f"{out['partition']['bound'][0]:.5f} ms by bytes; torch.nonzero of the same "
+          f"flags {nz_ms:.4f} ms (its size goes to the host: a synchronisation a call)",
+          flush=True)
+
+    # ---- the compacted frames against the plain ones -------------------------------------
+    frames = {"none": (c["cfg"], {}), "ray": (c["cfg_ray"], {}), "map": (c["cfg_map"], {}),
+              "full": (c["cfg_map"], dict(atlas=c["atlas"], envmap=c["env"]))}
+    eye = c["eye"]
+    frame_rows = {}
+    for name, (cfg, kw) in frames.items():
+        want = render_frame(world, O, D, eye, cfg=cfg, device=dev, **kw)
+        got = render_frame(world, O, D, eye, cfg=cfg, compact=True, device=dev, **kw)
+        torch.cuda.synchronize()
+        bad = {k: int((~(got[k] == want[k]).reshape(n, -1).all(dim=1)).sum())
+               for k in ("rgb", "depth", "hit", "material", "point", "normal")}
+        if any(bad.values()):
+            fail(f"the compacted {name} frame differs from the plain one: {bad}")
+        ms_c = cuda_ms(lambda: render_frame(world, O, D, eye, cfg=cfg, compact=True,
+                                            device=dev, **kw), TIMED_ITERS)
+        ms_p = cuda_ms(lambda: render_frame(world, O, D, eye, cfg=cfg, device=dev, **kw),
+                       TIMED_ITERS)
+        frame_rows[name] = {"ms": ms_c, "plain_ms": ms_p, "lane_iters": int(got["lane_iters"])}
+        print(f"phase 14 compacted {name} frame: equal to compact=False on every pixel (rgb, "
+              f"depth, hit, material, point, normal bit for bit); ms/frame {ms_c:.4f} against "
+              f"{ms_p:.4f}; lane_iters {int(got['lane_iters'])}", flush=True)
+    out["frames"] = frame_rows
+    eye_host = c["eye_host"]
+    for name, (cfg, kw) in frames.items():        # the light-bundle cache, filled
+        render_frame(world, O, D, eye_host, cfg=cfg, compact=True, device=dev, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name, (cfg, kw) in frames.items():
+            render_frame(world, O, D, eye_host, cfg=cfg, compact=True, device=dev, **kw)
+        sample_segments_compact(world, O[:65536], D[:65536], 4, 512, device=dev)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print("phase 14 the four compacted frames and the compacted sampler under "
+          "torch.cuda.set_sync_debug_mode('error'): no synchronisation", flush=True)
+
+    # ---- the compacted light pass ---------------------------------------------------------
+    lights = c["lights"]
+    depth_c, vp_c, lanes_l = render_shadowmap(world, lights, max_steps=512, compact=True,
+                                              assume_resident=True)
+    depth_p, vp_p = render_shadowmap(world, lights, max_steps=512, assume_resident=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(depth_c, depth_p) and torch.equal(vp_c, vp_p)):
+        fail("render_shadowmap(compact=True) differs from the plain light pass")
+    print(f"phase 14 render_shadowmap(compact=True): the 512x512 depth map equal to the light-"
+          f"depth K1's bit for bit; lane_iters {int(lanes_l)}", flush=True)
+
+    # ---- the compacted sampler and fit ------------------------------------------------------
+    segs = c["segs"]
+    zero_counts()
+    got, ex = sample_segments_compact(world, O, D, K, 512, device=dev)
+    torch.cuda.synchronize()
+    sampler_calls = {k: v for k, v in read_counts().items() if v}
+    bad = {k: int((getattr(got, k) != getattr(segs, k)).sum())
+           for k in ("slot", "t0", "t1", "count")}
+    if any(bad.values()):
+        fail(f"the compacted sampler differs from K4 at K={K}: {bad}")
+    executed = [int(v) for v in ex]
+    s_plain_ms, (gp, ex_p) = cuda_ms_once(
+        lambda: sample_segments_compact_plain(world, O, D, K, 512))
+    bad = {k: int((getattr(got, k) != getattr(gp, k)).sum())
+           for k in ("slot", "t0", "t1", "count")}
+    if any(bad.values()) or executed != [int(v) for v in ex_p]:
+        fail(f"the compacted sampler differs from its plain version: {bad}")
+    s_err = max(max_abs(got.t0, gp.t0), max_abs(got.t1, gp.t1))
+    del gp, got
+    sprof = kernel_device_ms(lambda: sample_segments_compact(world, O, D, K, 512, device=dev),
+                             tags)
+    sink = MC.SegmentSink(torch.empty_like(segs.slot), torch.empty_like(segs.t0),
+                          torch.empty_like(segs.t1), torch.empty_like(segs.count),
+                          int(world.twig.shape[0]), 8)
+    t1 = torch.empty(n, dtype=torch.float32, device=dev)
+    flag1 = torch.empty(n, dtype=torch.uint8, device=dev)
+    s_entry_ms = cuda_ms(lambda: MC._entry_launch(world, O, D, None, t1, flag1, sink=sink),
+                         TIMED_ITERS)
+    if not (torch.equal(flag1, flag0) and torch.equal(t1, t0)):
+        fail("the sampler's K9 entry differs from the frame march's")
+    del sink
+    s_ms = cuda_ms(lambda: sample_segments_compact(world, O, D, K, 512, device=dev), 3)
+    k4_ms = cuda_ms(lambda: sample_segments(world, O, D, K, 512, device=dev), 3)
+    views, params0 = c["views"], c["params0"]
+    fit_c = cuda_ms(lambda: fit(world, views, params0, steps=1, lr=0.05, max_segments=K,
+                                compact=True, device=dev), 3)
+    fit_p = cuda_ms(lambda: fit(world, views, params0, steps=1, lr=0.05, max_segments=K,
+                                device=dev), 3)
+    _, h_c = fit(world, views, params0, steps=2, lr=0.05, max_segments=K, compact=True,
+                 device=dev)
+    _, h_p = fit(world, views, params0, steps=2, lr=0.05, max_segments=K, device=dev)
+    if h_c != h_p:
+        fail(f"fit(compact=True) gave {h_c}, fit {h_p}")
+    out["sampler"] = {"ms": s_ms, "k4_ms": k4_ms, "plain_ms": s_plain_ms,
+                      "executed": executed, "launches": sum(sampler_calls.values()),
+                      "fit_ms": fit_c, "fit_plain_ms": fit_p, "entry_ms": s_entry_ms,
+                      "profile": sprof, "err": s_err}
+    print(f"phase 14 compacted sampler (K={K}, {n} rays): segments equal to K4's and to its "
+          f"plain version on every ray; {s_ms:.4f} ms a call (K4 {k4_ms:.4f}, plain "
+          f"{s_plain_ms:.1f}); device ms of one call by torch.profiler "
+          f"{sprof or 'no device events traced'}; its K9 entry alone {s_entry_ms:.4f} ms; "
+          f"launches a call {sampler_calls}; lanes executed per phase "
+          f"{executed} (sum {sum(executed)}); one fit step with the geometry pass: compact "
+          f"{fit_c:.4f} ms, K4 {fit_p:.4f} ms; fit(compact=True) losses equal to fit's: {h_c}",
+          flush=True)
+
+    # ---- the launch counters on the compacted paths ---------------------------------------
+    zero_counts()
+    for name, (cfg, kw) in frames.items():
+        render_frame(world, O, D, eye, cfg=cfg, compact=True, device=dev, **kw)
+    fit(world, views, params0, steps=1, lr=0.05, max_segments=K, compact=True, device=dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for k in ("compact_entry", "compact_stage", "sampler_entry", "sampler_stage", "partition"):
+        if counts[k] == 0:
+            fail(f"kernel {k} was not launched by the compacted paths")
+    out["launches"] = counts
+    print(f"phase 14 launches of the four compacted frames and one fit(compact=True) step: "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1286,6 +1581,7 @@ def main() -> int:
         _shade_launch,
         shade_tables,
     )
+    from octree_raymarcher_tpu_torch.ops import march_compact as MC
     from octree_raymarcher_tpu_torch.world.alloc import PATCH_KERNEL
     from octree_raymarcher_tpu_torch.world.world import World
 
@@ -1303,7 +1599,10 @@ def main() -> int:
                 "shade_bwd": SHADE_BWD_KERNELS[(False, False)],
                 "shade_bwd textured": SHADE_BWD_KERNELS[(False, True)],
                 "shade_bwd_map": SHADE_BWD_KERNELS[(True, False)],
-                "shade_bwd_map textured": SHADE_BWD_KERNELS[(True, True)]}
+                "shade_bwd_map textured": SHADE_BWD_KERNELS[(True, True)],
+                "compact_entry": MC.COMPACT_ENTRY_KERNEL, "compact_stage": MC.COMPACT_STAGE_KERNEL,
+                "sampler_entry": MC.SAMPLER_ENTRY_KERNEL, "sampler_stage": MC.SAMPLER_STAGE_KERNEL,
+                "partition": MC.PARTITION_KERNEL}
 
     def zero_counts():
         for k in counters.values():
@@ -1328,7 +1627,7 @@ def main() -> int:
           f"cuda {torch.version.cuda}; ptxas: {regs}", flush=True)
     for name, info in ptxas_report(kernels.build_log()).items():
         if any(k in name for k in ("march_kernel", "segments_kernel", "shade_kernel",
-                                   "shade_bwd_kernel", "patch_kernel")):
+                                   "shade_bwd_kernel", "patch_kernel", "compact_", "partition_")):
             print(f"phase 1 ptxas {name}: {info}", flush=True)
 
     # ---- 2. bench world: generate, pack, upload -----------------------------
@@ -2001,6 +2300,14 @@ def main() -> int:
                        "full": dev_ms["shade_map textured"]},
                       texture_parts(rf, O, D, atlas, env)[0], smi)
 
+    # ---- 14. the stage-compacted march and sampler (K9, K10) --------------------------
+    comp = phase_compact(dict(world=world, dev=dev, K=K, O=O, D=D, eye=eye, eye_host=eye_host,
+                              rk=rk, sk=sk, lk=lk, start=start, sdirs=sdirs, live=live,
+                              lorig=lorig, ldirs=ldirs, cfg=cfg, cfg_ray=cfg_ray,
+                              cfg_map=cfg_map, atlas=atlas, env=env, lights=lights,
+                              segs=segs, views=views, params0=params0),
+                         zero_counts, read_counts, smi)
+
     # ---- K2 with its tables on the host uploads nothing ------------------------
     # one call traced by torch.profiler (last: a trace taken before phase 12's
     # dropped device events there): no host-to-device copy may appear (the
@@ -2108,6 +2415,34 @@ def main() -> int:
             g["k8"], "shade_bwd.cu", "octree_raymarcher_tpu/shade/render.py:62",
             f"differentiable frames ({case})", g["k8_launches"], g["k8_err"], g["K8"],
             g["plain"], g["bound"]))
+    # phase 14: K9's instantiations and K10, launches from the compacted
+    # frames and one fit(compact=True) step; the stages' ms is their device
+    # time summed over one camera-ray march (or one sampler call) by
+    # torch.profiler, else that call's time by CUDA events; K10's and the entries' a
+    # launch on the camera rays' first pack; torch.nonzero of the same flags
+    # is K10's library time (the permutation half, with a synchronisation)
+    cl, cam, sam = comp["launches"], comp["march"]["camera"], comp["sampler"]
+    report["kernels"] += [
+        entry("compact_entry", "compact.cu", "octree_raymarcher_tpu/ops/march_compact.py:133",
+              "compacted frames", cl["compact_entry"], comp["entry"]["err"],
+              comp["entry"]["ms"], comp["entry"]["plain_ms"], comp["entry"]["bound"]),
+        entry("compact_stage", "compact.cu", "octree_raymarcher_tpu/ops/march_compact.py:152",
+              "compacted frames", cl["compact_stage"], cam["err"],
+              cam["profile"].get("stage", cam["ms"]), cam["plain_ms"], (b1, by1)),
+        entry("sampler_entry", "compact.cu",
+              "octree_raymarcher_tpu/diff/segments_compact.py:83", "fit(compact=True)",
+              cl["sampler_entry"], comp["entry"]["err"], sam["entry_ms"],
+              comp["entry"]["plain_ms"], comp["entry"]["bound"]),
+        entry("sampler_stage", "compact.cu",
+              "octree_raymarcher_tpu/diff/segments_compact.py:55", "fit(compact=True)",
+              cl["sampler_stage"], sam["err"], sam["profile"].get("stage", sam["ms"]),
+              sam["plain_ms"], b_seg),
+        entry("partition", "compact.cu", "octree_raymarcher_tpu/ops/march_compact.py:109",
+              "compacted frames + fit(compact=True)", cl["partition"],
+              comp["partition"]["err"], comp["partition"]["ms"],
+              comp["partition"]["plain_ms"], comp["partition"]["bound"],
+              comp["partition"]["library_ms"]),
+    ]
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

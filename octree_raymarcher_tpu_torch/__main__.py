@@ -12,7 +12,8 @@ Common world flags: --dims AxBxC --chunksize S --depth D --seed N --water L
 --amplitude A --device cuda|cpu.  ``--device`` takes the place of the
 reference's ``--platform``: ``cuda`` (the default) runs the CUDA kernels and
 fails without a card, ``cpu`` runs the plain PyTorch versions.  ``render
---compact`` is accepted and ignored, as ``render_frame`` ignores it.
+--compact`` renders with the stage-compacted march (``render_frame(compact=
+True)``) and adds its ``lane_iters`` to the JSON line.
 """
 
 from __future__ import annotations
@@ -74,9 +75,12 @@ def cmd_render(args):
     rgb = np.clip(out["rgb"].cpu().numpy().reshape(height, width, 3), 0, 1)
     save_png(args.out, (rgb * 255).astype(np.uint8))
     hit = float(out["hit"].float().mean())
-    print(json.dumps({"out": args.out, "res": args.res, "shadow": args.shadow,
-                      "hit_frac": round(hit, 3), "seconds": round(time.time() - t0, 1),
-                      "device": _device_name(world)}))
+    line = {"out": args.out, "res": args.res, "shadow": args.shadow,
+            "hit_frac": round(hit, 3), "seconds": round(time.time() - t0, 1),
+            "device": _device_name(world)}
+    if args.compact:
+        line["lane_iters"] = int(out["lane_iters"])
+    print(json.dumps(line))
 
 
 def cmd_info(args):
@@ -116,7 +120,7 @@ def main(argv=None):
     r.add_argument("--shadow", default="map", choices=("none", "ray", "map"))
     r.add_argument("--max-steps", type=int, default=512)
     r.add_argument("--compact", action="store_true",
-                   help="accepted for callers of the reference; one launch covers the frame")
+                   help="stage-compacted march schedule (ops/march_compact)")
     r.set_defaults(fn=cmd_render)
 
     i = sub.add_parser("info", help="world + allocator memory report")

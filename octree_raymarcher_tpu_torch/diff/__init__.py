@@ -7,4 +7,5 @@ from .segments import (
     sample_segments_frame,
     sample_segments_ref,
 )
+from .segments_compact import sample_segments_compact
 from .checkpoint import save_state, load_state

@@ -14,19 +14,27 @@ import torch
 from ..world.device import resolve_device, to_device
 from .composite import VoxelParams, composite
 from .segments import sample_segments_frame
+from .segments_compact import sample_segments_compact
 
 
 def sample_views(world, views, max_segments: int = 32, max_steps: int = 512,
                  tile: int = 65536, compact: bool = False, device="cuda"):
     """views: list of (origins, dirs, target_rgb).  Samples segments once
     (geometry is fixed while the params are optimised), so each step is
-    pure compositing.  Returns a list of (segments, target) pairs.  ``tile``
-    and ``compact`` are accepted for callers of the reference and ignored:
-    one K4 launch covers a view, and the reference's compact sampler gave
-    the same segments."""
+    pure compositing.  Returns a list of (segments, target) pairs.  One K4
+    launch samples a view; ``compact=True`` samples it with the
+    stage-compacted sampler (diff/segments_compact.py, K9 and K10), segment
+    for segment the same.  ``tile`` is accepted for callers of the
+    reference and ignored."""
     dev = resolve_device(device)
-    return [(sample_segments_frame(world, o, d, max_segments, max_steps, device=dev),
-             to_device(target, dev)) for o, d, target in views]
+    cached = []
+    for o, d, target in views:
+        if compact:
+            segs, _ = sample_segments_compact(world, o, d, max_segments, max_steps, device=dev)
+        else:
+            segs = sample_segments_frame(world, o, d, max_segments, max_steps, device=dev)
+        cached.append((segs, to_device(target, dev)))
+    return cached
 
 
 def photometric_loss(params: VoxelParams, cached):
@@ -47,7 +55,9 @@ def make_loss_fn(world, views, max_segments: int = 32, max_steps: int = 512, dev
 def fit(world, views, params0: VoxelParams, steps: int = 100, lr: float = 0.05,
         max_segments: int = 32, compact: bool = False, device="cuda"):
     """Run Adam on the photometric loss; returns (params, loss_history).
-    The losses are read back after the last step."""
+    ``compact=True`` samples the views with the stage-compacted sampler (the
+    same segments, so the same history).  The losses are read back after
+    the last step."""
     cached = sample_views(world, views, max_segments, compact=compact, device=device)
     leaves = [params0.density_raw.detach().clone().requires_grad_(True),
               params0.albedo_raw.detach().clone().requires_grad_(True)]

@@ -6,13 +6,10 @@ entry(device)             -> (fn, example_args): the forward pass of the
                              shade) on the 64x64 demo frame.
 dryrun_multichip(n, dev)  -> on the initialised process group of ``n``
                              ranks: the sharded render, the blocking,
-                             overlapped and ZeRO train steps, and the
-                             ``cfg.tile=8`` frame, one call each on tiny
-                             shapes (steps 1-5 of the reference's dryrun).
-
-The reference's step 6, ``march_sharded_compact`` (per-device stage
-compaction of the march), is not ported: it re-packs a lockstep TPU loop,
-while here each CUDA thread leaves when its ray ends.
+                             overlapped and ZeRO train steps, the
+                             ``cfg.tile=8`` frame and the stage-compacted
+                             sharded march, one call each on tiny shapes
+                             (steps 1-6 of the reference's dryrun).
 
     python -m octree_raymarcher_tpu_torch.entry [--device cpu]
 
@@ -34,6 +31,7 @@ from .parallel.mesh import init_distributed, local_address, make_mesh
 from .parallel.render_sharded import (
     make_sharded_train_step,
     make_zero_train_step,
+    march_sharded_compact,
     pad_rays,
     render_sharded,
 )
@@ -70,10 +68,10 @@ def _check_loss(name: str, loss: torch.Tensor) -> float:
 
 
 def dryrun_multichip(n_devices: int, device="cuda") -> dict:
-    """Steps 1-5 of the reference's dryrun on the initialised group, which
-    must have ``n_devices`` ranks.  Returns the rgb of steps 1 and 5 and the
-    three steps' losses; raises if a loss is not finite or an output has
-    another shape."""
+    """Steps 1-6 of the reference's dryrun on the initialised group, which
+    must have ``n_devices`` ranks.  Returns the rgb of steps 1 and 5, the
+    three steps' losses and step 6's per-rank executed lanes; raises if a
+    loss is not finite or an output has another shape."""
     if not dist.is_initialized():
         raise RuntimeError("dryrun_multichip needs an initialised process group "
                            "(parallel.mesh.init_distributed)")
@@ -122,7 +120,16 @@ def dryrun_multichip(n_devices: int, device="cuda") -> dict:
         if tuple(out.shape) != (n, 3):
             raise RuntimeError(f"dryrun_multichip: {name} gave {tuple(out.shape)}, "
                                f"want ({n}, 3)")
-    return {"rgb": rgb, "rgb_tile": rgb_tile, "losses": losses}
+
+    # 6) the stage-compacted march on the mesh: each rank compacts its own
+    #    rays, and reports its executed lanes.
+    hit, t, _, executed = march_sharded_compact(mesh, scene.world, origins, dirs, max_steps=64,
+                                                tile=16)
+    if tuple(executed.shape) != (n_devices,) or tuple(t.shape) != (n,):
+        raise RuntimeError(f"dryrun_multichip: march_sharded_compact gave t "
+                           f"{tuple(t.shape)} and executed {tuple(executed.shape)}, want "
+                           f"({n},) and ({n_devices},)")
+    return {"rgb": rgb, "rgb_tile": rgb_tile, "losses": losses, "executed": executed}
 
 
 def main(argv=None) -> int:

@@ -51,6 +51,10 @@ SIGNATURES = {
     "ort_composite_fwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I] + [_P] * 4 + [_P],
     "ort_composite_bwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I, _I64] + [_P] * 8 + [_P],
     "ort_patch": [_P] * 8 + [_I, _I] + [_P],
+    "ort_compact_entry": _WORLD + [_P] * 3 + [_I64] + [_P] * 2 + [_I] + [_P] * 11 + [_I] + [_P],
+    "ort_compact_stage": _WORLD + [_P] * 7 + [_I64] + [_I] * 3 + [_P, _I] + [_P] * 11
+                         + [_I] * 4 + [_P],
+    "ort_partition": [_P] * 20 + [_I64] + [_P],
 }
 
 _lock = threading.Lock()

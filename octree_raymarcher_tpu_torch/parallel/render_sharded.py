@@ -44,6 +44,7 @@ from ..diff.composite import VoxelParams, composite
 from ..diff.optim import optimizer_step
 from ..diff.segments import sample_segments
 from ..ops.march import march
+from ..ops.march_compact import default_schedule, march_frame_compact
 from ..shade.render import render
 from ..world.device import to_device
 from .mesh import RayMesh
@@ -117,6 +118,29 @@ def march_sharded(mesh: RayMesh, world, origins, dirs, max_steps: int = 512):
     full = _gather_rows(mesh, rows)
     return (full[:, 0] != 0, full[:, 1].contiguous().view(torch.float32),
             full[:, 2].contiguous())
+
+
+def march_sharded_compact(mesh: RayMesh, world, origins, dirs, max_steps: int = 512,
+                          tile: int = 8192, stride: int = 16, schedule=None):
+    """Sharded forward march with each rank's block stage-compacted
+    (ops/march_compact.py: K9 and K10 on its own rays).  Returns (hit, t,
+    material, executed) per ray, as :func:`march_sharded` (bit for bit the
+    same), with ``executed`` int64[ranks]: each rank's lane_iters, gathered
+    in the same collective as the rows (as two int32 words in one extra row
+    a rank).  ``tile`` is accepted for callers of the reference and
+    ignored."""
+    if schedule is None:
+        schedule = default_schedule(max_steps, stride)
+    res, executed = march_frame_compact(world, _block(origins, mesh), _block(dirs, mesh),
+                                        max_steps, schedule=schedule, device=mesh.device)
+    rows = torch.stack([res.hit.to(torch.int32), res.t.view(torch.int32), res.material], dim=1)
+    words = torch.zeros((1, 3), dtype=torch.int32, device=rows.device)
+    words[0, :2] = executed.reshape(1).view(torch.int32)
+    full = _gather_rows(mesh, torch.cat([rows, words])).view(mesh.size, rows.shape[0] + 1, 3)
+    ray_rows = full[:, :-1].reshape(-1, 3)
+    executed = full[:, -1, :2].reshape(-1).contiguous().view(torch.int64)
+    return (ray_rows[:, 0] != 0, ray_rows[:, 1].contiguous().view(torch.float32),
+            ray_rows[:, 2].contiguous(), executed)
 
 
 def _tile_loss_grad(world, params: VoxelParams, o, d, target, max_segments: int):
@@ -259,6 +283,7 @@ __all__ = [
     "render_sharded",
     "render_frame_sharded",
     "march_sharded",
+    "march_sharded_compact",
     "make_sharded_train_step",
     "make_zero_train_step",
 ]

@@ -12,6 +12,11 @@ launch in this order:
   skipped when ``shadowmap`` is given), K1, then K2 with the depth map,
   which projects its hit points into it itself.
 
+``render_frame(compact=True)`` marches with the stage-compacted schedule
+instead (ops/march_compact.py: K9 and K10 for the camera rays, for the
+shadow rays after K3's ray_prep, and for the light bundle, whose depth K3's
+shadow_resolve takes), then the same K2.
+
 On CPU tensors every stage runs its plain PyTorch version.
 
 The frame is differentiable as the reference's is: with respect to the
@@ -38,6 +43,7 @@ from ..core.constants import EPS
 from ..core.geometry import const, cube_normal, cube_uv, inverse_depth, length
 from ..kernels import Kernel, c_floats, ptr
 from ..ops.march import MarchResult, march
+from ..ops.march_compact import march_frame_compact
 from ..world.device import TorchWorld, resolve_device, to_device
 from .envmap import sample_env
 from .lights import LightRig
@@ -592,13 +598,51 @@ def render_frame(
     device="cuda",
 ) -> dict:
     """Full-frame render: one launch of each kernel of :func:`render` for
-    the whole batch.  ``tile``, ``fused``, ``compact``, ``compact_stride``
-    and ``compact_schedule`` are accepted for callers of the reference and
-    ignored (they chose among TPU schedules of the same result; the
-    reference's compact path also returned a "lane_iters" count, which has
-    no counterpart here)."""
-    return render(world, origins, dirs, eye, lights, materials, cfg, atlas,
-                  envmap=envmap, device=device)
+    the whole batch.  ``tile`` and ``fused`` are accepted for callers of the
+    reference and ignored (they chose among TPU schedules of the same
+    result).
+
+    ``compact=True`` marches every march of the frame with the
+    stage-compacted schedule (ops/march_compact.py, K9 and K10; stages from
+    ``compact_schedule`` or :func:`default_schedule` of ``compact_stride``):
+    the camera rays, with ``cfg.shadow == "ray"`` the shadow rays from K3's
+    ray_prep (started dead on the misses), with ``"map"`` the light bundle
+    (``render_shadowmap(compact=True)``); the shading is the same K2.  The
+    AOV dict is the same, but ``steps`` carries the coarse charge, and
+    ``"lane_iters"`` (a 0-d int64 tensor) sums the executed lanes of all of
+    the frame's compacted marches, as the reference's does."""
+    if not compact:
+        return render(world, origins, dirs, eye, lights, materials, cfg, atlas,
+                      envmap=envmap, device=device)
+    _check_shadow(cfg)
+    lights = LightRig.default() if lights is None else lights
+    materials = MaterialTable.default() if materials is None else materials
+    dev = resolve_device(device)
+    o = to_device(origins, dev)
+    d = to_device(dirs, dev)
+    om = o.detach() if o.requires_grad else o
+    dm = d.detach() if d.requires_grad else d
+    march_kw = dict(stride=compact_stride, assume_resident=cfg.assume_resident,
+                    schedule=compact_schedule, device=dev)
+    shadowmap = lane_iters = None
+    if cfg.shadow == "map":
+        depth, vp, lane_iters = render_shadowmap(world, lights, max_steps=cfg.max_steps,
+                                                 compact=True,
+                                                 assume_resident=cfg.assume_resident)
+        shadowmap = (depth, vp)
+    res, frame_iters = march_frame_compact(world, om, dm, cfg.max_steps, **march_kw)
+    lane_iters = frame_iters if lane_iters is None else lane_iters + frame_iters
+    shadow_factor = None
+    if cfg.shadow == "ray":
+        start, sdirs, live = ray_prep(res, om, dm, light_dir(lights))
+        sres, shadow_iters = march_frame_compact(world, start, sdirs, cfg.max_steps,
+                                                 live_start=live, **march_kw)
+        shadow_factor = (res.hit & sres.hit).to(torch.float32)
+        lane_iters = lane_iters + shadow_iters
+    out = shade_hits(res, o, d, eye, lights, materials, cfg, shadow_factor=shadow_factor,
+                     atlas=atlas, envmap=envmap, shadowmap=shadowmap)
+    out["lane_iters"] = lane_iters
+    return out
 
 
 __all__ = ["RenderConfig", "render", "render_frame", "render_shadowmap", "shadow_bundle",

@@ -13,7 +13,9 @@ PyTorch version here:
   map and the biased compare, times the hit mask.
 
 The shadow-map frame runs neither of the last two: :func:`render_shadowmap`
-resolves its light depth in K1's epilogue (ops/march.py ``march_depth``),
+resolves its light depth in K1's epilogue (ops/march.py ``march_depth``;
+with ``compact=True`` it marches with K9 and K10 and resolves with
+:func:`shadow_resolve`),
 and ``render`` hands the depth map to the shading kernel K2, which projects
 its own hit points.  Both use the arithmetic of ``shadow_resolve`` and
 ``map_project`` (csrc/shadow.cuh), which stay public, as does
@@ -33,6 +35,7 @@ from ..core.constants import EPS
 from ..core.geometry import cube_normal, vp_row
 from ..kernels import Kernel, c_floats, ptr
 from ..ops.march import MarchResult, light_depth_plain, march, march_depth
+from ..ops.march_compact import march_frame_compact
 from ..world.device import TorchWorld, resolve_device, to_device
 from .lights import LightRig, host_leaf
 from .transforms import look_at, ortho
@@ -303,13 +306,21 @@ def render_shadowmap(world: TorchWorld, lights: LightRig, resolution=(512, 512),
 
     One launch of K1 with its light-depth epilogue over the whole bundle
     (ops/march.py ``march_depth``; on the CPU its plain version,
-    :func:`shadow_resolve_plain` of ``march_plain``).  ``tile``,
-    ``compact`` and ``compact_tile`` are accepted for callers of the
-    reference and ignored: they chose among TPU schedules of the same
-    depth map, and ``compact=True`` does not return the reference's
-    executed-lane count."""
+    :func:`shadow_resolve_plain` of ``march_plain``).  ``compact=True``
+    marches the bundle with the stage-compacted schedule
+    (ops/march_compact.py: K9 and K10), resolves the depth with
+    :func:`shadow_resolve` (K3), the same depth map bit for bit, and returns
+    (depth, light_vp, lane_iters) as the reference does.  ``tile`` and
+    ``compact_tile`` are accepted for callers of the reference and
+    ignored."""
     H, W = resolution
     origins, dirs, vp = _bundle(world, lights, H, W, margin)
+    if compact:
+        res, lane_iters = march_frame_compact(world, origins, dirs, max_steps,
+                                              assume_resident=assume_resident,
+                                              device=world.device)
+        depth = shadow_resolve(origins, dirs, res.hit, res.t, vp)
+        return depth.reshape(H, W), torch.from_numpy(vp), lane_iters
     depth = march_depth(world, origins, dirs, vp[2], max_steps,
                         assume_resident=assume_resident, device=world.device)
     return depth.reshape(H, W), torch.from_numpy(vp)

@@ -42,6 +42,11 @@ from octree_raymarcher_tpu_torch.diff.segments import (
     sample_segments_plain,
     segments_plan,
 )
+from octree_raymarcher_tpu_torch.diff.segments_compact import (
+    sample_segments_compact,
+    sample_segments_compact_plain,
+)
+from octree_raymarcher_tpu_torch.ops import march_compact as MC
 from octree_raymarcher_tpu_torch.ops.guards import GuardError, composite_checked, march_checked
 from octree_raymarcher_tpu_torch.ops.march import (
     MARCH_DEPTH_KERNEL,
@@ -58,9 +63,11 @@ from octree_raymarcher_tpu_torch.parallel import (
     make_sharded_train_step,
     make_zero_train_step,
     march_sharded,
+    march_sharded_compact,
     render_frame_sharded,
     render_sharded,
 )
+from octree_raymarcher_tpu_torch.shade import render_frame
 from octree_raymarcher_tpu_torch.shade import (
     LightRig,
     MaterialTable,
@@ -585,6 +592,141 @@ def test_segments_kernel_matches_plain(gpu_scene, budget):
     assert int(got.count.max()) >= 2
 
 
+# ---- K9 and K10: the stage-compacted march and sampler ------------------------------
+
+def _compact_counts():
+    return tuple(k.launches for k in (MC.COMPACT_ENTRY_KERNEL, MC.COMPACT_STAGE_KERNEL,
+                                      MC.SAMPLER_ENTRY_KERNEL, MC.SAMPLER_STAGE_KERNEL,
+                                      MC.PARTITION_KERNEL))
+
+
+def _compact_case(gpu_scene, case):
+    """(o, d, max_steps, live_start) of a batch: mixed hits, misses and sky;
+    all miss (above the world, pointing up); all live to the cap (8
+    iterations); fewer rays than a warp; mixed with live_start."""
+    world, o, d, _, rng = gpu_scene
+    if case == "all_miss":
+        up = torch.tensor([0.0, 1.0, 0.0], device=o.device).expand_as(d).contiguous()
+        return o + torch.tensor([0.0, 500.0, 0.0], device=o.device), up, 512, None
+    if case == "all_live_to_cap":
+        return o, d, 8, None
+    if case == "few":
+        return o[:20].contiguous(), d[:20].contiguous(), 512, None
+    live = None
+    if case == "live_start":
+        live = torch.from_numpy((rng.uniform(size=o.shape[0]) < 0.5).astype(np.int32)).cuda()
+    return o, d, 512, live
+
+
+@pytest.mark.parametrize("case", ["mixed", "all_miss", "all_live_to_cap", "few", "live_start"])
+def test_compact_march_kernels_match_plain(gpu_scene, case):
+    """K9 and K10 against their plain versions: every field of the result
+    (steps: the coarse charge) and the lane count exact; hit, t, material,
+    cell and texel equal to one K1 launch; one entry, a stage per schedule
+    entry and a partition per stage but the last."""
+    world = gpu_scene[0]
+    o, d, max_steps, live = _compact_case(gpu_scene, case)
+    stride = 4 if max_steps < 16 else 16
+    sched = MC.default_schedule(max_steps, stride)
+    before = _compact_counts()
+    got, lanes = MC.march_frame_compact(world, o, d, max_steps, stride=stride, live_start=live,
+                                        device="cuda")
+    torch.cuda.synchronize()
+    grew = tuple(a - b for a, b in zip(_compact_counts(), before))
+    assert grew == (1, len(sched), 0, 0, len(sched)), grew
+    ref, lanes_p = MC.march_frame_compact_plain(world, o, d, max_steps, stride=stride,
+                                                live_start=live)
+    one = march(world, o, d, max_steps, live_start=live, device="cuda")
+    for k in FIELDS:
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+        if k != "steps":
+            assert torch.equal(getattr(got, k), getattr(one, k)), k
+    assert int(lanes) == int(lanes_p)
+    if case == "all_miss":
+        assert int(lanes) == 0 and not bool(got.hit.any())
+    if case == "all_live_to_cap":
+        assert bool((got.steps == 8).any())
+
+
+def test_compact_sampler_kernels_match_plain(gpu_scene):
+    """K9's sampler instantiation and K10 against their plain versions and
+    K4: segments exact, the lanes of each phase exact."""
+    world, o, d, _, _ = gpu_scene
+    before = _compact_counts()
+    got, ex = sample_segments_compact(world, o, d, 6, 256, device="cuda")
+    torch.cuda.synchronize()
+    grew = tuple(a - b for a, b in zip(_compact_counts(), before))
+    stages = len(MC.default_schedule(256, 16))
+    assert grew == (0, 0, 1, 6 * stages, 1 + 6 * stages - 1), grew
+    ref, ex_p = sample_segments_compact_plain(world, o, d, 6, 256)
+    k4 = sample_segments(world, o, d, 6, 256, device="cuda")
+    for k in ("slot", "t0", "t1", "count"):
+        assert torch.equal(getattr(got, k), getattr(ref, k)), k
+        assert torch.equal(getattr(got, k), getattr(k4, k)), k
+    assert [int(v) for v in ex] == [int(v) for v in ex_p]
+    assert int(got.count.max()) >= 2
+
+
+@pytest.mark.parametrize("m", [100, 2048, 20000])
+def test_partition_kernel_matches_plain(m):
+    """K10 in a single tile, a full one and many: live rays to a dense
+    prefix and next-phase rays after the rows already there, in order, and
+    the counts, against partition_plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    rng = np.random.default_rng(m)
+    flag = torch.from_numpy(rng.integers(0, 3, m).astype(np.uint8)).cuda()
+
+    def src():
+        return MC.Rows(torch.from_numpy(rng.normal(size=(m, 3)).astype(np.float32)).cuda(),
+                       torch.from_numpy(rng.normal(size=(m, 3)).astype(np.float32)).cuda(),
+                       torch.from_numpy(rng.normal(size=m).astype(np.float32)).cuda(),
+                       torch.from_numpy(rng.permutation(m)).cuda(),
+                       torch.from_numpy(rng.integers(0, 99, m).astype(np.int32)).cuda())
+
+    rows = src()
+    live_in = torch.tensor([m - m // 7], dtype=torch.int64, device="cuda")
+    next_in = torch.tensor([m // 9], dtype=torch.int64, device="cuda")
+    outs = []
+    for plain in (False, True):
+        live_dst, next_dst = MC.Rows.empty(m, "cuda", True), MC.Rows.empty(m, "cuda", False)
+        for r in (live_dst, next_dst):
+            for t in (r.o, r.d, r.t, r.orig):
+                t.zero_()
+        scratch = MC.partition_scratch(m, torch.device("cuda"), plain)
+        live, nxt = MC.partition(flag, rows, live_in, live_dst, next_dst, next_in, scratch,
+                                 plain)
+        outs.append((int(live), int(nxt), live_dst, next_dst))
+    (lk, nk, lk_dst, nk_dst), (lp, np_, lp_dst, np_dst) = outs
+    assert (lk, nk) == (lp, np_)
+    for a, b in ((lk_dst, lp_dst), (nk_dst, np_dst)):
+        for f in ("o", "d", "t", "orig"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(lk_dst.charge[:lk], lp_dst.charge[:lp])
+
+
+def test_compact_frame_does_not_synchronize(gpu_scene):
+    """Between the stages nothing waits for the host: the compacted frames
+    (shadowless, ray, map) and the sampler run under
+    torch.cuda.set_sync_debug_mode("error")."""
+    world, o, d, eye, _ = gpu_scene
+    eye = eye.cpu().numpy()
+    cfgs = [RenderConfig(shadow=s, max_steps=256) for s in ("none", "ray", "map")]
+    want = [render(world, o, d, eye, cfg=c) for c in cfgs]    # fills the light-bundle cache
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [render_frame(world, o, d, eye, cfg=c, compact=True) for c in cfgs]
+        segs, _ = sample_segments_compact(world, o, d, 4, 128)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for a, b in zip(outs, want):
+        for k in ("rgb", "depth", "hit", "material", "point", "normal"):
+            assert torch.equal(a[k], b[k]), k
+        assert int(a["lane_iters"]) > 0
+    assert torch.equal(segs.slot, sample_segments(world, o, d, 4, 128).slot)
+
+
 def _scene_on_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels run only on the card)")
@@ -897,6 +1039,9 @@ def test_sharded_render_and_march_equal_one_process(gpu_scene, nccl_mesh):
     ref = march(world, o, d, 512)
     assert torch.equal(hit, ref.hit) and torch.equal(mat, ref.material)
     assert torch.equal(t.view(torch.int32), ref.t.view(torch.int32))
+    chit, ct, cmat, executed = march_sharded_compact(nccl_mesh, world, o, d)
+    assert torch.equal(chit, hit) and torch.equal(cmat, mat) and torch.equal(ct, t)
+    assert executed.shape == (1,) and int(executed[0]) > 0
 
 
 class _RecordingAdam(torch.optim.Adam):

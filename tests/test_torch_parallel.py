@@ -50,6 +50,7 @@ from octree_raymarcher_tpu.parallel.render_sharded import render_sharded as jax_
 from octree_raymarcher_tpu.shade.render import RenderConfig as JaxRenderConfig
 from octree_raymarcher_tpu_torch import entry
 from octree_raymarcher_tpu_torch.models import VoxelScene
+from octree_raymarcher_tpu_torch.ops.march_compact import march_frame_compact
 from octree_raymarcher_tpu_torch.parallel import (
     RayMesh,
     init_distributed,
@@ -58,6 +59,7 @@ from octree_raymarcher_tpu_torch.parallel import (
     make_sharded_train_step,
     make_zero_train_step,
     march_sharded,
+    march_sharded_compact,
     pad_rays,
     render_frame_sharded,
     render_sharded,
@@ -118,6 +120,13 @@ def _worker(rank: int, addr: str, out_dir: str) -> None:
         out["frame"] = render_frame_sharded(mesh, scene.world, fo, fd, EYE, tile=TILE).numpy()
         hit, t, mat = march_sharded(mesh, scene.world, fo, fd)
         out.update(hit=hit.numpy(), t=t.numpy(), material=mat.numpy())
+        chit, ct, cmat, executed = march_sharded_compact(mesh, scene.world, fo, fd)
+        out.update(compact_hit=chit.numpy(), compact_t=ct.numpy(), compact_material=cmat.numpy(),
+                   compact_executed=executed.numpy())
+        # each rank's entry is the lane count of its own block's compacted march
+        block = mesh.ray_block(fo.shape[0])
+        _, own = march_frame_compact(scene.world, fo[block], fd[block], 512, device="cpu")
+        out["compact_executed_is_own"] = np.bool_(int(executed[rank]) == int(own))
 
         o, d, target = _train_rays()
         opt = functools.partial(torch.optim.Adam, lr=LR)
@@ -156,6 +165,7 @@ def _worker(rank: int, addr: str, out_dir: str) -> None:
         out["dryrun_rgb"] = dry["rgb"].numpy()
         out["dryrun_losses"] = np.float32([dry["losses"][k]
                                            for k in ("blocking", "overlap", "zero")])
+        out["dryrun_executed"] = dry["executed"].numpy()
         out["params_unchanged"] = np.bool_(all(
             np.array_equal(v, before[k]) for k, v in _leaves(scene.params).items()))
         np.savez(Path(out_dir) / f"rank{rank}.npz", **out)
@@ -291,6 +301,18 @@ def test_march_sharded_matches_reference(ranks):
     assert np.isinf(r0["t"][~hit]).all()
 
 
+def test_march_sharded_compact_equals_march_sharded(ranks):
+    """Each rank compacts its own block: the same rays as march_sharded, bit
+    for bit, and one lane count a rank, gathered with the rows."""
+    (r0, r1), _ = ranks
+    for r in (r0, r1):
+        for k in ("hit", "t", "material"):
+            np.testing.assert_array_equal(r[f"compact_{k}"], r0[k], err_msg=k)
+        assert r["compact_executed"].dtype == np.int64
+        assert r["compact_executed"].shape == (RANKS,) and (r["compact_executed"] > 0).all()
+        assert bool(r["compact_executed_is_own"])
+
+
 def test_blocking_step_matches_reference(ranks):
     (r0, _), refs = ranks
     np.testing.assert_allclose(r0["blocking_loss0"], refs["blocking_loss0"], rtol=1e-3)
@@ -337,6 +359,7 @@ def test_dryrun_multichip_two_ranks(ranks):
     assert r0["dryrun_rgb"].shape == (RANKS * 2 * 16, 3)
     assert np.isfinite(r0["dryrun_rgb"]).all() and np.isfinite(r0["dryrun_losses"]).all()
     np.testing.assert_allclose(r0["dryrun_losses"], r0["dryrun_losses"][0], rtol=1e-5)
+    assert r0["dryrun_executed"].shape == (RANKS,) and (r0["dryrun_executed"] > 0).all()
 
 
 if __name__ == "__main__":

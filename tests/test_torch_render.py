@@ -112,9 +112,15 @@ def test_render_frame_is_render_and_counts_no_launch(scene):
     _, tworld, _, o, d, eye = scene
     before = SHADE_KERNEL.launches
     a = render(tworld, o, d, eye, device="cpu")
-    b = render_frame(tworld, o, d, eye, tile=1000, fused=True, compact=True, device="cpu")
+    b = render_frame(tworld, o, d, eye, tile=1000, fused=True, device="cpu")
     for k in a:
         np.testing.assert_array_equal(a[k].numpy(), b[k].numpy(), err_msg=k)
+    # the compacted march: the same frame, its steps the coarse charge
+    c = render_frame(tworld, o, d, eye, tile=1000, compact=True, device="cpu")
+    for k in a:
+        if k != "steps":
+            np.testing.assert_array_equal(a[k].numpy(), c[k].numpy(), err_msg=k)
+    assert int(c["lane_iters"]) > 0
     assert SHADE_KERNEL.launches == before
 
 

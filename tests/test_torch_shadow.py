@@ -103,14 +103,16 @@ def test_shadowmap_matches_jax(scene, jax_shadowmap):
 
 def test_shadowmap_cache_and_ignored_options(scene):
     """The host bundle cache keys on the light direction and resolution;
-    tile/compact options change nothing."""
+    tile/compact_tile options change nothing, and the compacted light pass
+    gives the same map (and its lane count)."""
     _, tworld, *_ = scene
     S._shadow_bundle_cache.clear()
     rig = LightRig.default()
     d1, _ = render_shadowmap(tworld, rig, resolution=(32, 32))
     n1 = len(S._shadow_bundle_cache)
-    d1b, _ = render_shadowmap(tworld, rig, resolution=(32, 32), tile=100, compact=True,
-                              compact_tile=64)
+    d1b, _, lane_iters = render_shadowmap(tworld, rig, resolution=(32, 32), tile=100,
+                                          compact=True, compact_tile=64)
+    assert int(lane_iters) > 0
     assert len(S._shadow_bundle_cache) == n1 == 1
     np.testing.assert_array_equal(d1.numpy(), d1b.numpy())
     rig2 = LightRig.default()
