@@ -108,25 +108,31 @@ order, and then:
      64x64 (finite, falling losses).
  14. the stage-compacted march and sampler (ops/march_compact.py,
      diff/segments_compact.py: K9's entry and stage instantiations and the
-     partition K10, csrc/compact.cu): the compacted march of the 2,073,600
-     camera rays, the 2,073,600 shadow rays (live_start) and the 262,144
-     light rays, each bit for bit against K1 on every ray, its coarse steps
-     within their bounds, every field and lane_iters equal to its plain
-     version on all rays, one entry, 20 stages and 20 partitions a call
-     (counters), timed by CUDA events beside K1, its SIMT efficiency against K1's, the live count
-     after each stage and its kernels' device time (torch.profiler); the
-     camera rays' march under other schedules (one stage of 512 iterations,
-     4 of 128, 16 of 32); K9's entry and K10 alone on the first pack against
-     their plain versions beside torch.nonzero of the same flags;
-     render_frame(compact=True) for the shadowless, ray, map and full
-     frames against compact=False on every pixel, both timed; the four
-     compacted frames and the sampler under torch.cuda.set_sync_debug_mode
-     ("error"); render_shadowmap(compact=True) against the light-depth K1;
-     sample_segments_compact at K=32 against K4 and its plain version on
-     every ray, timed beside K4, its lanes per phase; fit(compact=True)
-     against fit (same losses) and a step of each timed; and the launch
-     counters of the compacted paths, zeroed just before and read just
-     after.
+     partition K10, csrc/compact.cu; a call is one replay of a CUDA graph
+     captured on the first call of its shape): K9's registers and spills;
+     the compacted march of the 2,073,600 camera rays, the 2,073,600
+     shadow rays (live_start) and the 262,144 light rays, each bit for bit
+     against K1 on every ray, its coarse steps within their bounds, every
+     field and lane_iters equal to its plain version on all rays, one
+     entry, 20 stages and 20 partitions a call (counters, which a replay
+     adds as its graph's kernels), timed by CUDA events beside K1, the
+     host's enqueue of a call apart, its SIMT efficiency against K1's, the
+     live count after each stage and its kernels' device time
+     (torch.profiler); a second camera batch through the same graph (the
+     first result unchanged); the camera rays' march under other schedules
+     (one stage of 512 iterations, 4 of 128, 16 of 32); K9's entry and K10
+     alone on the first pack against their plain versions beside
+     torch.nonzero of the same flags; render_frame(compact=True) for the
+     shadowless, ray, map and full frames against compact=False on every
+     pixel, both timed; the four compacted frames and the sampler under
+     torch.cuda.set_sync_debug_mode("error"); render_shadowmap(compact=True)
+     against the light-depth K1; sample_segments_compact at K=32 against
+     K4 and its plain version on every ray (lanes per phase too), one
+     entry, 6 stages and 6 partitions a call, timed beside K4 with its
+     host enqueue and device time, and under other stage schedules;
+     fit(compact=True) against fit (same losses) and a step of each timed;
+     and the launch counters of the compacted paths, zeroed just before and
+     read just after.
 
 Last, one K2 call with its eye and tables on the host is traced by
 torch.profiler: no host-to-device copy may appear.
@@ -1248,28 +1254,57 @@ def phase_grad(world, rf, O, D, eye, atlas, env, smap, zero_counts, read_counts,
     return result
 
 
-def kernel_device_ms(fn, tags: dict) -> dict:
-    """{name: device ms of one call of fn summed over the kernels whose name
-    holds the tag} from torch.profiler (device_breakdown); {} when the trace
+def kernel_device_ms(fn, tags: dict, calls: int = 3) -> dict:
+    """{name: device ms a call of fn, summed over the kernels whose name
+    holds the tag} from torch.profiler over ``calls`` calls, and under
+    "records" the kernel records a call found for each tag (a trace can
+    miss a graph's first kernels; the records show it); {} when the trace
     holds no device time."""
-    _, rows = device_breakdown(fn, top=1000)
-    out = {}
-    for name, tag in tags.items():
-        hits = [ms for key, ms in rows if tag in key]
-        if hits:
-            out[name] = sum(hits)
-    return out
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms, records = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        for name, tag in tags.items():
+            if tag in e.key and us > 0:
+                ms[name] = ms.get(name, 0.0) + us / 1e3 / calls
+                records[name] = records.get(name, 0) + e.count / calls
+    if not ms:
+        return {}
+    return {**{k: round(v, 4) for k, v in ms.items()}, "records": records}
+
+
+def replay_ms(kind: str, iters: int = TIMED_ITERS) -> float:
+    """Device ms of the newest captured call of ``kind`` (ops/march_compact
+    :class:`CapturedCall`): CUDA events around its replays alone, on the
+    inputs of its last call (whose outputs it rewrites)."""
+    from octree_raymarcher_tpu_torch.ops import march_compact as MC
+
+    call = next(reversed(MC._GRAPHS[kind].values()))
+    return cuda_ms(call.graph.replay, iters)
 
 
 def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
     """Phase 14: the stage-compacted march (K9, K10) on the bench frame's
     three ray sets, the compacted frames, the compacted sampler and fit, the
     compacted light pass, and the frames under the sync debug mode."""
+    from octree_raymarcher_tpu_torch import kernels
     from octree_raymarcher_tpu_torch.diff import fit
     from octree_raymarcher_tpu_torch.diff.segments import sample_segments
     from octree_raymarcher_tpu_torch.diff.segments_compact import (
         sample_segments_compact,
         sample_segments_compact_plain,
+        sampler_schedule,
     )
     from octree_raymarcher_tpu_torch.ops import march_compact as MC
     from octree_raymarcher_tpu_torch.ops.march import march
@@ -1281,6 +1316,22 @@ def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
     sched = MC.default_schedule(512, 16)
     n_stages = len(sched)
     out = {}
+    regs = {name: info for name, info in ptxas_report(kernels.build_log()).items()
+            if name.startswith("compact_stage_kernel")}
+    out["k9_ptxas"] = regs
+    print(f"phase 14 K9 stage ptxas (frame march <0>, sampler <1>): {regs}", flush=True)
+
+    def host_ms(fn, iters: int = TIMED_ITERS) -> float:
+        """Mean host ms to enqueue one call (no synchronisation inside)."""
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t_host = (time.perf_counter() - t0) * 1e3 / iters
+        torch.cuda.synchronize()
+        return t_host
+
     # ---- the compacted march on the camera, shadow and light rays -------------------
     sets = {"camera": (c["O"], c["D"], None, True, c["rk"]),
             "shadow": (c["start"], c["sdirs"], c["live"], False, c["sk"]),
@@ -1315,6 +1366,8 @@ def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
                  f"lane_iters {int(lanes)} against {int(lanes_p)}")
         del resp
         ms = cuda_ms(lambda: MC.march_frame_compact(world, o, d, 512, **kw), TIMED_ITERS)
+        enqueue = host_ms(lambda: MC.march_frame_compact(world, o, d, 512, **kw))
+        span = replay_ms("march")
         k1_ms = cuda_ms(lambda: march(world, o, d, 512, live_start=live,
                                       assume_resident=resident, device=dev), TIMED_ITERS)
         prof = kernel_device_ms(lambda: MC.march_frame_compact(world, o, d, 512, **kw), tags)
@@ -1328,19 +1381,37 @@ def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
         march_rows[name] = {"ms": ms, "k1_ms": k1_ms, "plain_ms": plain_ms,
                             "lane_iters": int(lanes), "steps": steps, "eff": eff_c,
                             "k1_eff": eff_k1, "profile": prof, "history": history,
-                            "n": o.shape[0], "err": err,
+                            "n": o.shape[0], "err": err, "host_ms": enqueue,
+                            "replay_ms": span,
                             "launches": sum(per_call.values())}
         print(f"phase 14 compacted march, {name} rays ({o.shape[0]}): equal to K1 on every "
               f"ray (hit, t, material, texel, cell bit for bit), steps within [exact, exact + "
               f"{max(sched)}], equal to its plain version (lane_iters {int(lanes)}); ms a call "
               f"(CUDA events, mean of {TIMED_ITERS}; {smi}): {ms:.4f}, K1 {k1_ms:.4f} (plain "
-              f"{plain_ms:.1f}); "
+              f"{plain_ms:.1f}); the host's enqueue of a call (one graph replay) "
+              f"{enqueue:.4f} ms; the replay alone {span:.4f} ms (CUDA events); "
               f"launches a call {sum(per_call.values())} {per_call}; SIMT efficiency "
               f"compacted {eff_c:.4f} (sum of steps {steps} / lane_iters), K1 {eff_k1:.4f}; "
               f"device ms of one call by torch.profiler {prof or 'no device events traced'}; "
               f"live count after the entry and each stage {history}", flush=True)
     out["march"] = march_rows
     O, D = c["O"], c["D"]
+
+    # a second camera batch of the same shape replays the same graph with
+    # fresh outputs: its result is K1's on those rays, the first unchanged
+    res_a, _ = MC.march_frame_compact(world, O, D, 512, assume_resident=True, device=dev)
+    keep = res_a.t.clone()
+    O2, D2 = O.flip(0).contiguous(), D.flip(0).contiguous()
+    res_b, _ = MC.march_frame_compact(world, O2, D2, 512, assume_resident=True, device=dev)
+    k1_b = march(world, O2, D2, 512, assume_resident=True, device=dev)
+    mism = march_mismatches(res_b, k1_b)
+    mism.pop("steps")
+    if max(mism.values()) > 0 or not torch.equal(res_a.t, keep):
+        fail(f"a second camera batch through the captured march: {mism}, first result kept "
+             f"{torch.equal(res_a.t, keep)}")
+    print("phase 14 a second camera batch (the rays reversed) through the same captured "
+          "march: equal to K1 on those rays; the first call's result unchanged", flush=True)
+    del res_a, res_b, k1_b, O2, D2, keep
 
     # other schedules on the camera rays: one stage of 512 iterations is one
     # K1 launch's work in K9, then coarser and finer stages
@@ -1370,7 +1441,8 @@ def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
     rows = MC.Rows.empty(n, dev, True)
     scratch = MC.partition_scratch(n, dev, False)
     everyone = torch.full((1,), n, dtype=torch.int64, device=dev)
-    entry_ms = cuda_ms(lambda: MC._entry_launch(world, O, D, None, t0, flag0, res0),
+    table0 = MC.out_table(dev, res0, lanes=torch.zeros(1, dtype=torch.int64, device=dev))
+    entry_ms = cuda_ms(lambda: MC._entry_launch(world, O, D, None, t0, flag0, table0),
                        TIMED_ITERS)
     src = MC.Rows(O, D, t0, None, None)
     part_ms = cuda_ms(lambda: MC.partition(flag0, src, everyone, rows, block_counts=scratch),
@@ -1452,10 +1524,15 @@ def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
 
     # ---- the compacted sampler and fit ------------------------------------------------------
     segs = c["segs"]
+    s_stages = len(sampler_schedule(512, K)[0])
+    sample_segments_compact(world, O, D, K, 512, device=dev)     # captured here
     zero_counts()
     got, ex = sample_segments_compact(world, O, D, K, 512, device=dev)
     torch.cuda.synchronize()
     sampler_calls = {k: v for k, v in read_counts().items() if v}
+    want = {"sampler_entry": 1, "sampler_stage": s_stages, "partition": s_stages}
+    if sampler_calls != want:
+        fail(f"the compacted sampler launched {sampler_calls}, want {want}")
     bad = {k: int((getattr(got, k) != getattr(segs, k)).sum())
            for k in ("slot", "t0", "t1", "count")}
     if any(bad.values()):
@@ -1476,13 +1553,34 @@ def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
                           int(world.twig.shape[0]), 8)
     t1 = torch.empty(n, dtype=torch.float32, device=dev)
     flag1 = torch.empty(n, dtype=torch.uint8, device=dev)
-    s_entry_ms = cuda_ms(lambda: MC._entry_launch(world, O, D, None, t1, flag1, sink=sink),
+    table1 = MC.out_table(dev, sink=sink, lanes=torch.zeros(K, dtype=torch.int64, device=dev))
+    s_entry_ms = cuda_ms(lambda: MC._entry_launch(world, O, D, None, t1, flag1, table1, K),
                          TIMED_ITERS)
     if not (torch.equal(flag1, flag0) and torch.equal(t1, t0)):
         fail("the sampler's K9 entry differs from the frame march's")
     del sink
-    s_ms = cuda_ms(lambda: sample_segments_compact(world, O, D, K, 512, device=dev), 3)
-    k4_ms = cuda_ms(lambda: sample_segments(world, O, D, K, 512, device=dev), 3)
+    s_ms = cuda_ms(lambda: sample_segments_compact(world, O, D, K, 512, device=dev), 5)
+    s_host = host_ms(lambda: sample_segments_compact(world, O, D, K, 512, device=dev), 5)
+    s_span = replay_ms("sampler", 5)
+    s_live = [int(v) for v in next(reversed(MC._GRAPHS["sampler"].values())).bufs["counts"]]
+    k4_ms = cuda_ms(lambda: sample_segments(world, O, D, K, 512, device=dev), 5)
+    # other stage schedules: a given per-phase schedule's stages, then doubling
+    s_sweep = {}
+    for label, sc in (("stride 16", MC.default_schedule(512, 16)),
+                      ("stride 64", MC.default_schedule(512, 64))):
+        g_s, _ = sample_segments_compact(world, O, D, K, 512, schedule=sc, device=dev)
+        if not all(torch.equal(getattr(g_s, k), getattr(segs, k))
+                   for k in ("slot", "t0", "t1", "count")):
+            fail(f"the compacted sampler with the per-phase schedule {label} differs from K4")
+        del g_s
+        s_sweep[label] = {
+            "stages": len(sampler_schedule(512, K, 16, sc)[0]),
+            "ms": cuda_ms(lambda: sample_segments_compact(world, O, D, K, 512, schedule=sc,
+                                                          device=dev), 5),
+            "profile": kernel_device_ms(lambda: sample_segments_compact(
+                world, O, D, K, 512, schedule=sc, device=dev), tags)}
+    print(f"phase 14 compacted sampler by stage schedule (K={K}; equal to K4; ms a call by "
+          f"CUDA events, device ms by torch.profiler): {s_sweep}", flush=True)
     views, params0 = c["views"], c["params0"]
     fit_c = cuda_ms(lambda: fit(world, views, params0, steps=1, lr=0.05, max_segments=K,
                                 compact=True, device=dev), 3)
@@ -1496,10 +1594,13 @@ def phase_compact(ctx, zero_counts, read_counts, smi: str) -> dict:
     out["sampler"] = {"ms": s_ms, "k4_ms": k4_ms, "plain_ms": s_plain_ms,
                       "executed": executed, "launches": sum(sampler_calls.values()),
                       "fit_ms": fit_c, "fit_plain_ms": fit_p, "entry_ms": s_entry_ms,
-                      "profile": sprof, "err": s_err}
-    print(f"phase 14 compacted sampler (K={K}, {n} rays): segments equal to K4's and to its "
-          f"plain version on every ray; {s_ms:.4f} ms a call (K4 {k4_ms:.4f}, plain "
-          f"{s_plain_ms:.1f}); device ms of one call by torch.profiler "
+                      "profile": sprof, "err": s_err, "host_ms": s_host, "stages": s_stages,
+                      "sweep": s_sweep, "replay_ms": s_span, "live": s_live}
+    print(f"phase 14 compacted sampler (K={K}, {n} rays, {s_stages} stages): segments equal "
+          f"to K4's and to its plain version on every ray; {s_ms:.4f} ms a call (K4 "
+          f"{k4_ms:.4f}, plain {s_plain_ms:.1f}); the host's enqueue of a call {s_host:.4f} "
+          f"ms, the replay alone {s_span:.4f} ms; rays in each stage's prefix {s_live}; "
+          f"device ms of one call by torch.profiler "
           f"{sprof or 'no device events traced'}; its K9 entry alone {s_entry_ms:.4f} ms; "
           f"launches a call {sampler_calls}; lanes executed per phase "
           f"{executed} (sum {sum(executed)}); one fit step with the geometry pass: compact "

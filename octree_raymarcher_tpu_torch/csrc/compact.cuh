@@ -3,11 +3,11 @@
 //
 // A packed ray is one row of a set of buffers (Rows): its origin and
 // direction, its march parameter t, its source index in the caller's batch
-// (int64) and, for the frame march, its coarse step charge.  The sampler
-// carries no charge, and neither carries its phase or the iterations spent in
-// it: the schedule is phase-major (every stage of phase k, then phase k + 1),
-// so every row of a buffer is at the same phase and stage, which the host
-// passes to the launch.
+// (int64) and one int32 column: for the frame march its coarse step charge,
+// for the sampler its state, the phase it is in and the iterations it has
+// spent in that phase (kUsedBits below).  The sampler is phase-merged: a ray
+// that hits starts its next phase in the same stage, so the rows of one
+// buffer may be in different phases, and K10 moves the state with the row.
 #pragma once
 
 #include "march_step.cuh"
@@ -19,14 +19,19 @@ struct Rows {
     float* d;          // [M, 3]
     float* t;          // [M]
     int64_t* orig;     // [M]; null on a partition's input means the identity
-    int32_t* charge;   // [M]; null where no charge rides (the sampler), and on
-                       // the first pack's input, where it is zero
+    int32_t* charge;   // [M] the charge or the sampler's state; null on the first
+                       // pack's input, where it is zero (phase 0, no iteration)
 };
+
+// The sampler's state in the charge column: phase << kUsedBits | iterations
+// spent in the phase (the wrapper keeps K and the phase cap below the limits).
+constexpr int kUsedBits = 20;
+constexpr int kUsedMask = (1 << kUsedBits) - 1;
 
 // What a stage leaves in a packed ray's flag for the partition.
 constexpr uint8_t kEnded = 0;  // its record (or its segments' tail) is written
 constexpr uint8_t kLive = 1;   // still marching: to the next stage's prefix
-constexpr uint8_t kNext = 2;   // sampler: hit, resumes in the next phase
+constexpr uint8_t kNext = 2;   // to K10's second destination (no K9 stage sets it)
 
 // A hit's segment (diff/segments.py `_segment_from_hit`) in K4's arithmetic
 // (segments.cu): t1 is the hit parameter plus the escape of the hit box,

@@ -51,9 +51,8 @@ SIGNATURES = {
     "ort_composite_fwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I] + [_P] * 4 + [_P],
     "ort_composite_bwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I, _I64] + [_P] * 8 + [_P],
     "ort_patch": [_P] * 8 + [_I, _I] + [_P],
-    "ort_compact_entry": _WORLD + [_P] * 3 + [_I64] + [_P] * 2 + [_I] + [_P] * 11 + [_I] + [_P],
-    "ort_compact_stage": _WORLD + [_P] * 7 + [_I64] + [_I] * 3 + [_P, _I] + [_P] * 11
-                         + [_I] * 4 + [_P],
+    "ort_compact_entry": _WORLD + [_P] * 3 + [_I64] + [_P] * 2 + [_I, _P, _I] + [_P],
+    "ort_compact_stage": _WORLD + [_P] * 7 + [_I64] + [_I] * 3 + [_P] + [_I] * 5 + [_P],
     "ort_partition": [_P] * 20 + [_I64] + [_P],
 }
 
@@ -142,6 +141,8 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.ort_error_string.argtypes = [ctypes.c_int]
             lib.ort_error_string.restype = ctypes.c_char_p
+            lib.ort_compact_load.argtypes = []
+            lib.ort_compact_load.restype = ctypes.c_int
             _lib = lib
         return _lib
 

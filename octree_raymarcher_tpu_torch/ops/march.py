@@ -154,10 +154,13 @@ def march_plain(
     steps_stride: int = 16,
     expose_live_t: bool = False,
     unroll: int = 4,
+    iter_caps=None,
 ) -> MarchResult:
     """The march in plain PyTorch ops: K1's arithmetic, step by step, over
     the rays still live (rays are independent, so compacting them changes
-    no result)."""
+    no result).  ``iter_caps`` (int32[N], no budget) gives each ray its own
+    iteration cap in place of ``max_steps``: a ray stops, live, after that
+    many iterations."""
     n = o.shape[0]
     dev = o.device
     g = inv_dir(d)
@@ -179,10 +182,20 @@ def march_plain(
     budgeted = step_budget is not None
     stride = budget_stride(steps_stride, unroll)
     cap = budget_cap(max_steps, stride) if budgeted else loop_bound(max_steps, unroll)
+    if iter_caps is not None:
+        cap = int(iter_caps.max()) if n else 0
     charged = torch.zeros(n, dtype=torch.int32, device=dev)
     for it in range(cap):
         if act.numel() == 0:
             break
+        if iter_caps is not None:
+            stop = iter_caps[act] <= it
+            if bool(stop.any()):           # live at their own cap
+                if expose_live_t:
+                    t_out[act[stop]] = ta[stop]
+                act, ta = act[~stop], ta[~stop]
+                if act.numel() == 0:
+                    break
         if budgeted and it % stride == 0:
             # stage boundary: out of budget -> miss; else charge a stride
             ok = charged[act] < step_budget[act]

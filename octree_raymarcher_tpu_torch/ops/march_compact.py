@@ -12,11 +12,25 @@ lane schedule differs.
 On CUDA tensors a frame is: K9's entry over all rays, one K10 partition of
 the rays that entered, then per stage one K9 stage over the packed prefix
 and one K10 partition of the rays still live (none after the last stage):
-``2 * len(schedule) + 1`` launches (csrc/compact.cu).  The live count stays
+``2 * len(schedule) + 1`` kernels (csrc/compact.cu).  The live count stays
 on the card; nothing between the stages waits for the host.  A ray writes
-its record at its source index in the stage that ends it.  On CPU tensors
-:func:`march_frame_compact_plain` runs the same stages with ``march_plain``
-resumed at t, the partition by ``torch.cumsum``, and the same accounting.
+its record at its source index in the stage that ends it.
+
+:func:`march_frame_compact` (and the sampler of diff/segments_compact.py)
+captures those launches once in a CUDA graph (:class:`CapturedCall`) and
+replays it: a call copies its rays into the graph's static buffers, points
+the graph's output table at freshly allocated results, and replays.  The
+graph is keyed on the ray count, the schedule, the options and every
+pointer and size of the world it reads, so a world that moved (a K7 edit
+that grew a pool) is captured anew, never read through stale pointers.  The
+cache holds one graph for each of the three ray sets a shadowed frame
+marches and one sampler call (:data:`GRAPH_SLOTS`); the least recently
+used goes first.  ``compact_begin``/``compact_stages``/``compact_finish``
+launch stage by stage, without a graph.
+
+On CPU tensors :func:`march_frame_compact_plain` runs the same stages with
+``march_plain`` resumed at t, the partition by ``torch.cumsum``, and the
+same accounting.
 
 Accounting (kernel and plain alike, from the same packed order):
 
@@ -37,19 +51,22 @@ the unit here.
 
 from __future__ import annotations
 
+import collections
+import ctypes
 import dataclasses
 
 import torch
 
 from ..core.constants import MAX_STEPS
 from ..core.geometry import inv_dir
-from ..kernels import Kernel, ptr
+from ..kernels import Kernel, library, ptr
 from ..world.device import TorchWorld, resolve_device, to_device
 from .march import MarchResult, _entry, check_world, loop_bound, march_plain, world_args
 
 _UNROLL = 4   # the march loop's unroll; every stage bound but the last divides by it
 WARP = 32     # lanes a warp: the unit of the charge and of the lane count
 PART_TILE = 2048  # rays a K10 tile (csrc/compact.cu kPartTile)
+GRAPH_SLOTS = {"march": 3, "sampler": 1}   # captured calls kept, by path kind
 
 # K9's instantiations (entry and stage, for the frame march and for the
 # segment sampler) and K10, each counted apart.
@@ -58,6 +75,8 @@ COMPACT_STAGE_KERNEL = Kernel("ort_compact_stage")
 SAMPLER_ENTRY_KERNEL = Kernel("ort_compact_entry")
 SAMPLER_STAGE_KERNEL = Kernel("ort_compact_stage")
 PARTITION_KERNEL = Kernel("ort_partition")
+KERNELS = (COMPACT_ENTRY_KERNEL, COMPACT_STAGE_KERNEL, SAMPLER_ENTRY_KERNEL,
+           SAMPLER_STAGE_KERNEL, PARTITION_KERNEL)
 
 
 def default_schedule(max_steps: int, stride: int = 16) -> tuple:
@@ -138,17 +157,35 @@ class SegmentSink:
         return self.slot.shape[1]
 
 
-def _result_ptrs(res: MarchResult | None) -> tuple:
-    if res is None:
-        return (None,) * 7
-    return (ptr(res.hit), ptr(res.t), ptr(res.material), ptr(res.cell_bmin),
-            ptr(res.cell_size), ptr(res.steps), ptr(res.texel))
+def out_table(dev, result: MarchResult | None = None, sink: SegmentSink | None = None,
+              lanes=None, table=None) -> torch.Tensor:
+    """K9's output table (csrc/compact.cu Outs): the pointers of the result
+    (or the sink) and of the lane count, int64[12] on the card, written by a
+    copy from pinned memory that does not wait for the card."""
+    vals = ((None,) * 7 if result is None else
+            (result.hit, result.t, result.material, result.cell_bmin, result.cell_size,
+             result.steps, result.texel))
+    vals += (None,) * 4 if sink is None else (sink.slot, sink.t0, sink.t1, sink.count)
+    vals += (lanes,)
+    host = torch.tensor([ptr(v) or 0 for v in vals], dtype=torch.int64, pin_memory=True)
+    if table is None:
+        table = torch.empty(len(vals), dtype=torch.int64, device=dev)
+    return table.copy_(host, non_blocking=True)
 
 
-def _sink_ptrs(sink: SegmentSink | None) -> tuple:
-    if sink is None:
-        return (None,) * 4
-    return ptr(sink.slot), ptr(sink.t0), ptr(sink.t1), ptr(sink.count)
+_loaded = False
+
+
+def load_kernels() -> None:
+    """Load K9's and K10's kernels once, so that a stream capture launches
+    only loaded code."""
+    global _loaded
+    if not _loaded:
+        err = library().ort_compact_load()
+        if err != 0:
+            raise RuntimeError(f"ort_compact_load: CUDA error {err} "
+                               f"({library().ort_error_string(err).decode()})")
+        _loaded = True
 
 
 def warp_trips(iters: torch.Tensor) -> torch.Tensor:
@@ -166,11 +203,12 @@ class CompactFrameState:
     on the rays' device) and the result being written.  Produced by
     :func:`compact_begin`, advanced by :func:`compact_stages`, finished by
     :func:`compact_finish`.  ``history`` holds the live count after the
-    entry's pack and after each stage (1-element tensors on the device)."""
+    entry's pack and after each stage (1-element tensors on the device);
+    ``table`` is K9's output table (None in plain ops)."""
 
-    def __init__(self, rows, spare, flag, live, scratch, executed, result, plain):
+    def __init__(self, rows, spare, flag, live, scratch, executed, result, plain, table=None):
         self.rows, self.spare, self.flag, self.block_counts = rows, spare, flag, scratch
-        self.executed, self.result, self.plain = executed, result, plain
+        self.executed, self.result, self.plain, self.table = executed, result, plain, table
         self.history = [live]
         self.done = False
 
@@ -185,21 +223,25 @@ class CompactFrameState:
 # ---- K10 and its plain version ---------------------------------------------------
 
 def partition(flag, src: Rows, live_in, live_dst: Rows, next_dst: Rows | None = None,
-              next_in=None, block_counts=None, plain: bool = False):
+              next_in=None, block_counts=None, plain: bool = False, live_out=None,
+              next_out=None):
     """Stable partition of the prefix ``[0, live_in)`` of ``src`` by ``flag``:
     rays flagged 1 go, in their order, to the front of ``live_dst``; rays
     flagged 2 go, in their order, to ``next_dst`` after its first
     ``next_in`` rows.  ``live_in``/``next_in`` are 1-element int64 tensors
     (``next_in`` None is 0).  A ``src`` whose ``orig`` is None is in source
-    order; a None ``charge`` is zero.  Returns (live_out, next_out), new
-    1-element tensors (next_out None without ``next_dst``).  K10 on CUDA
-    tensors (``block_counts``: int32[2 * ceil(M / 2048)] scratch), else (or
-    with ``plain``) :func:`partition_plain`."""
+    order; a None ``charge`` is zero.  Returns (live_out, next_out),
+    1-element tensors, new unless given (next_out None without
+    ``next_dst``).  K10 on CUDA tensors (``block_counts``: int32[2 *
+    ceil(M / 2048)] scratch), else (or with ``plain``)
+    :func:`partition_plain`."""
     if plain or not flag.is_cuda:
         return partition_plain(flag, src, live_in, live_dst, next_dst, next_in)
     dev = flag.device
-    live_out = torch.empty(1, dtype=torch.int64, device=dev)
-    next_out = None if next_dst is None else torch.empty(1, dtype=torch.int64, device=dev)
+    if live_out is None:
+        live_out = torch.empty(1, dtype=torch.int64, device=dev)
+    if next_out is None and next_dst is not None:
+        next_out = torch.empty(1, dtype=torch.int64, device=dev)
     nxt = (None,) * 4 if next_dst is None else next_dst.ptrs()[:4]
     PARTITION_KERNEL(ptr(flag), *src.ptrs(), *live_dst.ptrs(), *nxt, ptr(live_in),
                      ptr(live_out), ptr(next_in), ptr(next_out), ptr(block_counts),
@@ -240,11 +282,13 @@ def partition_plain(flag, src: Rows, live_in, live_dst: Rows, next_dst: Rows | N
 
 # ---- K9 (a): the entry ------------------------------------------------------------
 
-def _entry_launch(world, o, d, live_start, t, flag, result=None, sink=None):
-    kern = COMPACT_ENTRY_KERNEL if sink is None else SAMPLER_ENTRY_KERNEL
+def _entry_launch(world, o, d, live_start, t, flag, table, K: int = 0):
+    """K9's entry over all rays; ``K`` > 0 is the sampler's instantiation
+    (a ray that never enters writes its empty row of K columns).  The entry
+    also zeroes the lane counts of the table (1, or K)."""
+    kern = COMPACT_ENTRY_KERNEL if K == 0 else SAMPLER_ENTRY_KERNEL
     kern(*world_args(world), ptr(o), ptr(d), ptr(live_start), o.shape[0], ptr(t), ptr(flag),
-         int(sink is not None), *_result_ptrs(result), *_sink_ptrs(sink),
-         0 if sink is None else sink.K)
+         int(K > 0), ptr(table), int(K))
 
 
 def entry_plain(world, o, d, live_start):
@@ -259,17 +303,18 @@ def partition_scratch(m: int, dev, plain: bool):
     return None if plain else torch.empty(2 * -(-m // PART_TILE), dtype=torch.int32, device=dev)
 
 
-def begin_rows(world, o, d, live_start, plain: bool, charge: bool, result=None, sink=None):
+def begin_rows(world, o, d, live_start, plain: bool, table=None, K: int = 0):
     """The entry and the first pack: (rows, spare rows, flag, live count,
-    K10's scratch)."""
+    K10's scratch).  The rows carry the charge column (the sampler's
+    state when ``K`` > 0)."""
     n, dev = o.shape[0], o.device
     if plain:
         t, flag = entry_plain(world, o, d, live_start)
     else:
         t = torch.empty(n, dtype=torch.float32, device=dev)
         flag = torch.empty(n, dtype=torch.uint8, device=dev)
-        _entry_launch(world, o, d, live_start, t, flag, result, sink)
-    rows, spare = Rows.empty(n, dev, charge), Rows.empty(n, dev, charge)
+        _entry_launch(world, o, d, live_start, t, flag, table, K)
+    rows, spare = Rows.empty(n, dev, True), Rows.empty(n, dev, True)
     everyone = torch.full((1,), n, dtype=torch.int64, device=dev)
     scratch = partition_scratch(n, dev, plain)
     live, _ = partition(flag, Rows(o, d, t, None, None), everyone, rows, block_counts=scratch,
@@ -279,16 +324,14 @@ def begin_rows(world, o, d, live_start, plain: bool, charge: bool, result=None, 
 
 # ---- K9 (b), (c): a stage, and its plain version -----------------------------------
 
-def stage_launch(world, rows: Rows, flag, live, cap, final, assume_resident, lane_iters,
-                 result=None, sink=None, phase=0):
-    """One K9 stage over the packed prefix: the frame march's (``result``)
-    or the sampler's (``sink``, phase ``phase``)."""
-    kern = COMPACT_STAGE_KERNEL if sink is None else SAMPLER_STAGE_KERNEL
+def stage_launch(world, rows: Rows, flag, live, cap, final, assume_resident, table,
+                 K: int = 0, phase_cap: int = 0, twig_slots: int = 0, num_materials: int = 0):
+    """One K9 stage over the packed prefix: the frame march's, or with ``K``
+    > 0 the phase-merged sampler's (``phase_cap`` iterations a phase)."""
+    kern = COMPACT_STAGE_KERNEL if K == 0 else SAMPLER_STAGE_KERNEL
     kern(*world_args(world), *rows.ptrs(), ptr(flag), ptr(live), flag.shape[0], int(cap),
-         int(bool(final)), int(bool(assume_resident)), ptr(lane_iters),
-         int(sink is not None), *_result_ptrs(result), *_sink_ptrs(sink),
-         0 if sink is None else sink.K, int(phase), 0 if sink is None else sink.twig_slots,
-         0 if sink is None else sink.num_materials)
+         int(bool(final)), int(bool(assume_resident)), ptr(table), int(K > 0), int(K),
+         int(phase_cap), int(twig_slots), int(num_materials))
 
 
 def advance_plain(world, rows: Rows, live, cap, assume_resident, lane_iters):
@@ -331,9 +374,126 @@ def stage_plain(world, rows: Rows, flag, live, cap, final, assume_resident, lane
 
 
 def _run_stage(world, st: "CompactFrameState", cap, final, assume_resident):
-    fn = stage_plain if st.plain else stage_launch
-    fn(world, st.rows, st.flag, st.history[-1], cap, final, assume_resident, st.executed,
-       st.result)
+    if st.plain:
+        stage_plain(world, st.rows, st.flag, st.history[-1], cap, final, assume_resident,
+                    st.executed, st.result)
+    else:
+        stage_launch(world, st.rows, st.flag, st.history[-1], cap, final, assume_resident,
+                     st.table)
+
+
+# ---- the captured call ----------------------------------------------------------------
+
+class CapturedCall:
+    """A compacted call's launches captured once in a CUDA graph, with the
+    static buffers they read and write (``bufs``) and how many launches of
+    each kernel a replay makes (``launches``; the capture launches nothing,
+    so the counts move at each replay instead)."""
+
+    def __init__(self, key, bufs: dict, build):
+        self.key, self.bufs = key, bufs
+        before = {k: k.launches for k in KERNELS}
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream(device=cur.device)
+        side.wait_stream(cur)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                build(bufs)
+            finally:
+                self.graph.capture_end()
+        cur.wait_stream(side)
+        self.launches = {k: k.launches - before[k] for k in KERNELS}
+        for k, c in self.launches.items():
+            k.launches -= c
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for k, c in self.launches.items():
+            k.launches += c
+
+
+_GRAPHS = {kind: collections.OrderedDict() for kind in GRAPH_SLOTS}
+
+
+def captured(kind: str, key, bufs, build) -> CapturedCall:
+    """The cached call of ``kind`` under ``key``, captured now if absent
+    (``bufs()`` allocates its buffers, ``build(bufs)`` launches the call);
+    the least recently used of the kind is dropped past its slots."""
+    cache = _GRAPHS[kind]
+    call = cache.get(key)
+    if call is None:
+        while len(cache) >= GRAPH_SLOTS[kind]:
+            cache.popitem(last=False)
+        load_kernels()
+        call = cache[key] = CapturedCall(key, bufs(), build)
+    cache.move_to_end(key)
+    return call
+
+
+def world_key(world) -> tuple:
+    """Every pointer and size of the world that a captured launch reads."""
+    return tuple(world_args(world))
+
+
+def call_buffers(n, dev, stages, has_live) -> dict:
+    """The static buffers of a captured call of ``n`` rays and ``stages``
+    stages: the rays' copies, the entry's t and flags, two sets of rows,
+    the live counts (``counts[0]`` = n), K10's scratch and the output
+    table."""
+    f32 = torch.float32
+    counts = torch.empty(stages + 1, dtype=torch.int64, device=dev)
+    counts[:1].fill_(n)
+    return dict(o=torch.empty((n, 3), dtype=f32, device=dev),
+                d=torch.empty((n, 3), dtype=f32, device=dev),
+                live=torch.empty(n, dtype=torch.int32, device=dev) if has_live else None,
+                t=torch.empty(n, dtype=f32, device=dev),
+                flag=torch.empty(n, dtype=torch.uint8, device=dev),
+                rows=Rows.empty(n, dev, True), spare=Rows.empty(n, dev, True),
+                counts=counts,
+                scratch=partition_scratch(n, dev, False),
+                table=torch.empty(12, dtype=torch.int64, device=dev))
+
+
+def launch_schedule(world, b: dict, caps, assume_resident, K: int = 0, phase_cap: int = 0,
+                    twig_slots: int = 0, num_materials: int = 0) -> None:
+    """The launches of a whole compacted call on the buffers ``b``
+    (:func:`call_buffers`): the entry, the first pack, then per stage a K9
+    stage and (but after the last) a K10 partition; ``counts[s]`` is the
+    live count before stage s."""
+    _entry_launch(world, b["o"], b["d"], b["live"], b["t"], b["flag"], b["table"], K)
+    counts, rows, spare = b["counts"], b["rows"], b["spare"]
+    partition(b["flag"], Rows(b["o"], b["d"], b["t"], None, None), counts[0:1], rows,
+              block_counts=b["scratch"], live_out=counts[1:2])
+    for s, cap in enumerate(caps):
+        final = s == len(caps) - 1
+        stage_launch(world, rows, b["flag"], counts[s + 1:s + 2], cap, final, assume_resident,
+                     b["table"], K, phase_cap, twig_slots, num_materials)
+        if not final:
+            partition(b["flag"], rows, counts[s + 1:s + 2], spare, block_counts=b["scratch"],
+                      live_out=counts[s + 2:s + 3])
+            rows, spare = spare, rows
+
+
+def _frame_replay(world, o, d, live_start, schedule, assume_resident):
+    """march_frame_compact on the card: one replay of the captured call."""
+    n, dev = o.shape[0], o.device
+    caps = [loop_bound(s, _UNROLL) for s in schedule]
+    key = (n, schedule, live_start is not None, bool(assume_resident), world_key(world))
+    call = captured("march", key,
+                    lambda: call_buffers(n, dev, len(caps), live_start is not None),
+                    lambda b: launch_schedule(world, b, caps, assume_resident))
+    b = call.bufs
+    b["o"].copy_(o)
+    b["d"].copy_(d)
+    if live_start is not None:
+        b["live"].copy_(live_start)
+    result = _miss_result(n, dev, False)
+    lanes = torch.empty(1, dtype=torch.int64, device=dev)
+    out_table(dev, result, lanes=lanes, table=b["table"])
+    call.replay()
+    return result, lanes
 
 
 # ---- the public entry points ---------------------------------------------------------
@@ -391,8 +551,10 @@ def compact_begin(world: TorchWorld, origins, dirs, tile: int = 65536, live_star
                                executed, result, plain)
         st.done = True
         return st, 0
-    rows, spare, flag, live, scratch = begin_rows(world, o, d, live_start, plain, True, result)
-    return CompactFrameState(rows, spare, flag, live, scratch, executed, result, plain), n
+    table = None if plain else out_table(o.device, result, lanes=executed)
+    rows, spare, flag, live, scratch = begin_rows(world, o, d, live_start, plain, table)
+    return CompactFrameState(rows, spare, flag, live, scratch, executed, result, plain,
+                             table), n
 
 
 def compact_stages(world: TorchWorld, st: CompactFrameState, schedule, tile: int = 65536,
@@ -430,14 +592,20 @@ def compact_finish(world: TorchWorld, st: CompactFrameState, n=None,
 
 def _compact(world, origins, dirs, max_steps, stride, assume_resident, live_start, schedule,
              device, plain):
+    """(MarchResult, lane_iters int64[1]): one replay on the card, the
+    stages in plain ops otherwise."""
     if schedule is None:
         schedule = default_schedule(max_steps, stride)
     schedule = tuple(int(s) for s in schedule)
     _validate_schedule(schedule, max_steps)
+    if not plain:
+        o, d, live = _rays(world, origins, dirs, live_start, device)
+        if o.is_cuda and o.shape[0] > 0:
+            return _frame_replay(world, o, d, live, schedule, assume_resident)
     st, _ = compact_begin(world, origins, dirs, live_start=live_start, device=device,
                           _plain=plain)
     compact_stages(world, st, schedule, assume_resident=assume_resident, last=True)
-    return compact_finish(world, st, assume_resident=assume_resident), st
+    return compact_finish(world, st, assume_resident=assume_resident), st.executed
 
 
 def march_frame_compact(world: TorchWorld, origins, dirs, max_steps: int = MAX_STEPS,
@@ -449,12 +617,13 @@ def march_frame_compact(world: TorchWorld, origins, dirs, max_steps: int = MAX_S
     (a 0-d int64 tensor on the rays' device) is the executed lane count (see
     the module docstring).  ``stride`` must be a multiple of the unroll (4);
     ``schedule`` overrides :func:`default_schedule` and must cover exactly
-    the plain march's effective iterations.  On ``cuda`` this launches K9
-    and K10 (``2 * len(schedule) + 1`` launches); ``device="cpu"`` runs
-    :func:`march_frame_compact_plain`."""
-    res, st = _compact(world, origins, dirs, max_steps, stride, assume_resident, live_start,
-                       schedule, device, None)
-    return res, st.executed.reshape(())
+    the plain march's effective iterations.  On ``cuda`` this replays the
+    call's CUDA graph of K9 and K10 (``2 * len(schedule) + 1`` kernels,
+    captured on the first call of its shape and world); ``device="cpu"``
+    runs :func:`march_frame_compact_plain`."""
+    res, lanes = _compact(world, origins, dirs, max_steps, stride, assume_resident,
+                          live_start, schedule, device, None)
+    return res, lanes.reshape(())
 
 
 def march_frame_compact_plain(world: TorchWorld, origins, dirs, max_steps: int = MAX_STEPS,
@@ -464,13 +633,15 @@ def march_frame_compact_plain(world: TorchWorld, origins, dirs, max_steps: int =
     """:func:`march_frame_compact` in plain PyTorch ops on the device of
     ``world`` (or ``device``): the same stages, packed order and
     accounting, with ``march_plain`` resumed at t and a cumsum partition."""
-    res, st = _compact(world, origins, dirs, max_steps, stride, assume_resident, live_start,
-                       schedule, world.device if device is None else device, True)
-    return res, st.executed.reshape(())
+    res, lanes = _compact(world, origins, dirs, max_steps, stride, assume_resident,
+                          live_start, schedule, world.device if device is None else device,
+                          True)
+    return res, lanes.reshape(())
 
 
 __all__ = ["march_frame_compact", "march_frame_compact_plain", "default_schedule",
            "compact_begin", "compact_stages", "compact_finish", "CompactFrameState",
-           "partition", "partition_plain", "warp_trips", "COMPACT_ENTRY_KERNEL",
+           "CapturedCall", "call_buffers", "captured", "launch_schedule",
+           "out_table", "partition", "partition_plain", "warp_trips", "COMPACT_ENTRY_KERNEL",
            "COMPACT_STAGE_KERNEL", "SAMPLER_ENTRY_KERNEL", "SAMPLER_STAGE_KERNEL",
            "PARTITION_KERNEL"]

@@ -40,8 +40,11 @@ from octree_raymarcher_tpu_torch.diff import VoxelParams, fit
 from octree_raymarcher_tpu_torch.diff.optim import sample_views
 from octree_raymarcher_tpu_torch.diff.segments import sample_segments
 from octree_raymarcher_tpu_torch.diff.segments_compact import (
+    USED_BITS,
     sample_segments_compact,
     sample_segments_compact_plain,
+    sampler_schedule,
+    sampler_stage_plain,
 )
 from octree_raymarcher_tpu_torch.ops import march_compact as MC
 from octree_raymarcher_tpu_torch.ops.march import march
@@ -299,6 +302,89 @@ def test_compact_sampler_identical_to_jax_and_plain(sworld, srays, K, max_steps,
     ex = [int(v) for v in executed]
     assert ex[0] > 0 and max(ex[1:]) <= ex[0]
     assert int(got.count.max()) >= 2
+
+
+@pytest.mark.parametrize("K,max_steps,stride,stages", [(1, 512, 16, 20), (32, 512, 16, 26),
+                                                       (6, 256, 16, 15), (4, 8, 4, 4)])
+def test_merged_schedule_covers_k_phases(K, max_steps, stride, stages):
+    """The phase-merged schedule of a given per-phase schedule: its stages,
+    then doubling stages up to K phase caps (at K = 1 the per-phase
+    schedule itself)."""
+    per_phase = MC.default_schedule(max_steps, stride)
+    sched, cap = sampler_schedule(max_steps, K, stride, per_phase)
+    assert cap == sum(per_phase)
+    assert sched[:len(per_phase)] == per_phase
+    assert len(sched) == stages and sum(sched) == K * cap
+    step, left, tail = max(per_phase), (K - 1) * cap, []
+    while left:
+        step *= 2
+        tail.append(min(step, left))
+        left -= tail[-1]
+    assert sched[len(per_phase):] == tuple(tail)
+
+
+@pytest.mark.parametrize("K,max_steps,schedule,want", [
+    (32, 512, None, ((512, 1024, 2048, 4096, 8192, 512), 512)),
+    (1, 512, None, ((512,), 512)),
+    (3, 130, None, ((132, 264), 132)),
+    (3, 128, (16, 16, 32, 64), ((16, 16, 32, 64, 128, 128), 128))])
+def test_sampler_schedule(K, max_steps, schedule, want):
+    """The sampler's stages: without a schedule one phase cap (K4's), then
+    doubling stages up to K caps; a given per-phase schedule sets the cap
+    and the first stages; a stride the unroll does not divide is refused,
+    as default_schedule refuses it."""
+    assert sampler_schedule(max_steps, K, 16, schedule) == want
+    with pytest.raises(ValueError):
+        sampler_schedule(max_steps, K, 6)
+
+
+def test_compact_sampler_phase_cap_mid_stage(sworld, srays):
+    """max_steps 8 with K = 4 and the stages (4, 4, 8, 16) of the per-phase
+    schedule (4, 4): from the third stage on a stage is longer than the
+    phase cap, so a phase that starts mid-stage reaches its cap of 8
+    iterations inside a stage; the segments stay K4's plain version's, bit
+    for bit, and differ from an uncapped run's."""
+    _, tworld = sworld
+    o, d = srays
+    assert sampler_schedule(8, 4, 4, (4, 4))[0] == (4, 4, 8, 16)
+    got, executed = sample_segments_compact(tworld, o, d, 4, 8, schedule=(4, 4), device="cpu")
+    want = sample_segments(tworld, o, d, 4, 8, device="cpu")
+    for k in ("slot", "t0", "t1", "count"):
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    uncapped = sample_segments(tworld, o, d, 4, 512, device="cpu")
+    assert not torch.equal(got.count, uncapped.count)
+    assert int(got.count.max()) >= 2 and int(executed[0]) > 0
+
+
+def test_compact_sampler_lanes_per_phase(sworld, srays):
+    """The lanes-per-phase rule on a hand-built batch of two warps of
+    hitters: a warp's 32 x trip in a stage goes to the phase its first ray
+    was in at the stage's start, whatever the phases of its other lanes."""
+    _, tworld = sworld
+    o, d = srays
+    steep = torch.nonzero(torch.from_numpy(d[:, 1] < -0.9)).flatten()[:64]
+    o64, d64 = torch.from_numpy(o)[steep], torch.from_numpy(d)[steep]
+    K = 30                        # no lane reaches K in a stage of 16 iterations
+
+    def lanes(states, m=64):
+        rows, _, flag, live, _ = MC.begin_rows(tworld, o64[:m], d64[:m], None, True)
+        L = int(live)
+        assert L == m
+        rows.charge[:L] = torch.tensor(states[:L], dtype=torch.int32) << USED_BITS
+        sink = MC.SegmentSink(torch.full((m, K), -1, dtype=torch.int32),
+                              torch.zeros((m, K)), torch.zeros((m, K)),
+                              torch.zeros(m, dtype=torch.int32), int(tworld.twig.shape[0]), 8)
+        ex = torch.zeros(K, dtype=torch.int64)
+        sampler_stage_plain(tworld, rows, flag, live, 16, False, False, ex, sink, 512)
+        return [int(v) for v in ex]
+
+    total = lanes([0] * 64)
+    first = lanes([0] * 32, m=32)[0]
+    mixed = lanes([2] + [0, 1, 3] * 10 + [4] + [0] + [3] * 31)
+    assert 0 < first < total[0] and total[0] % 32 == 0 and sum(total) == total[0]
+    assert mixed[2] == first and mixed[0] == total[0] - first
+    assert sum(mixed) == total[0] and all(v == 0 for k, v in enumerate(mixed) if k not in (0, 2))
+    assert lanes([5] * 64)[5] == total[0]
 
 
 def test_compact_sampler_plain_is_the_public_path(sworld, srays):

@@ -45,6 +45,7 @@ from octree_raymarcher_tpu_torch.diff.segments import (
 from octree_raymarcher_tpu_torch.diff.segments_compact import (
     sample_segments_compact,
     sample_segments_compact_plain,
+    sampler_schedule,
 )
 from octree_raymarcher_tpu_torch.ops import march_compact as MC
 from octree_raymarcher_tpu_torch.ops.guards import GuardError, composite_checked, march_checked
@@ -648,23 +649,109 @@ def test_compact_march_kernels_match_plain(gpu_scene, case):
         assert bool((got.steps == 8).any())
 
 
-def test_compact_sampler_kernels_match_plain(gpu_scene):
-    """K9's sampler instantiation and K10 against their plain versions and
-    K4: segments exact, the lanes of each phase exact."""
+@pytest.mark.parametrize("K", [1, 2, 6, 32])
+def test_compact_sampler_kernels_match_plain(gpu_scene, K):
+    """K9's phase-merged sampler instantiation and K10 against their plain
+    versions and K4: segments exact, the lanes charged to each phase exact;
+    one entry, a stage per merged stage and a partition per stage but the
+    last, plus the first pack."""
     world, o, d, _, _ = gpu_scene
     before = _compact_counts()
-    got, ex = sample_segments_compact(world, o, d, 6, 256, device="cuda")
+    got, ex = sample_segments_compact(world, o, d, K, 256, device="cuda")
     torch.cuda.synchronize()
     grew = tuple(a - b for a, b in zip(_compact_counts(), before))
-    stages = len(MC.default_schedule(256, 16))
-    assert grew == (0, 0, 1, 6 * stages, 1 + 6 * stages - 1), grew
-    ref, ex_p = sample_segments_compact_plain(world, o, d, 6, 256)
-    k4 = sample_segments(world, o, d, 6, 256, device="cuda")
+    stages = len(sampler_schedule(256, K)[0])
+    assert grew == (0, 0, 1, stages, stages), grew
+    ref, ex_p = sample_segments_compact_plain(world, o, d, K, 256)
+    k4 = sample_segments(world, o, d, K, 256, device="cuda")
     for k in ("slot", "t0", "t1", "count"):
         assert torch.equal(getattr(got, k), getattr(ref, k)), k
         assert torch.equal(getattr(got, k), getattr(k4, k)), k
     assert [int(v) for v in ex] == [int(v) for v in ex_p]
-    assert int(got.count.max()) >= 2
+    assert int(got.count.max()) >= min(K, 2)
+
+
+def test_compact_replay_after_new_rays_and_edits():
+    """The captured call replayed on a second ray batch of the same shape
+    and after K7 edit batches, one that rewrites the pools in place and one
+    that grows them (new pointers: captured anew): each result equals one
+    K1 launch and the plain version on the world as it is, and an earlier
+    result is not overwritten by a later call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    w = World.generate(dims=(2, 1, 2), chunksize=32.0, depth=5, seed=7, water_level=4.0,
+                       amplitude=16.0)
+    wa, world = w.to_device(slack=1.0, device="cuda")
+    rng = np.random.default_rng(11)
+
+    def rays():
+        o = np.stack([rng.uniform(2, 62, 4000), rng.uniform(20, 40, 4000),
+                      rng.uniform(2, 62, 4000)], axis=1).astype(np.float32)
+        dd = rng.normal(size=(4000, 3)).astype(np.float32)
+        dd[:, 1] = -np.abs(dd[:, 1])
+        dd /= np.linalg.norm(dd, axis=1, keepdims=True)
+        return torch.from_numpy(o).cuda(), torch.from_numpy(dd).cuda()
+
+    def check(world, o, d, got, lanes):
+        ref, lanes_p = MC.march_frame_compact_plain(world, o, d, 256)
+        one = march(world, o, d, 256, device="cuda")
+        for k in FIELDS:
+            assert torch.equal(getattr(got, k), getattr(ref, k)), k
+            if k != "steps":
+                assert torch.equal(getattr(got, k), getattr(one, k)), k
+        assert int(lanes) == int(lanes_p)
+
+    (oa, da), (ob, db) = rays(), rays()
+    got_a, lanes_a = MC.march_frame_compact(world, oa, da, 256)
+    keep = got_a.t.clone()
+    got_b, lanes_b = MC.march_frame_compact(world, ob, db, 256)
+    check(world, oa, da, got_a, lanes_a)
+    check(world, ob, db, got_b, lanes_b)
+    assert torch.equal(got_a.t, keep)
+    key0 = MC.world_key(world)
+    world = w.apply(wa, world, w.destroy((20.5, 2.5, 20.5), (44.5, 12.5, 44.5)))
+    got, lanes = MC.march_frame_compact(world, ob, db, 256)
+    check(world, ob, db, got, lanes)
+    assert not torch.equal(got.t, got_b.t)
+    world = w.apply(wa, world, w.build((0.3, 14.3, 0.7), (63.6, 30.2, 62.4), 2))
+    assert MC.world_key(world) != key0                  # the pools moved
+    got, lanes = MC.march_frame_compact(world, oa, da, 256)
+    check(world, oa, da, got, lanes)
+    segs, ex = sample_segments_compact(world, oa, da, 4, 256)
+    k4 = sample_segments(world, oa, da, 4, 256, device="cuda")
+    for k in ("slot", "t0", "t1", "count"):
+        assert torch.equal(getattr(segs, k), getattr(k4, k)), k
+
+
+def test_compact_stage_with_no_live_ray_writes_nothing(gpu_scene):
+    """A stage over an empty prefix (live count 0), of the frame march and
+    of the sampler, with a grid for all the rays: every warp leaves; no row,
+    flag, record, segment or lane count changes."""
+    world, o, d, _, _ = gpu_scene
+    n, dev = o.shape[0], o.device
+    rows = MC.Rows(o.clone(), d.clone(), torch.full((n,), 5.0, device=dev),
+                   torch.arange(n, device=dev), torch.full((n,), 7, dtype=torch.int32,
+                                                           device=dev))
+    flag = torch.full((n,), 9, dtype=torch.uint8, device=dev)
+    res = MC._miss_result(n, dev, True)
+    sink = MC.SegmentSink(torch.full((n, 4), 3, dtype=torch.int32, device=dev),
+                          torch.full((n, 4), 2.0, device=dev), torch.full((n, 4), 2.0, device=dev),
+                          torch.full((n,), 4, dtype=torch.int32, device=dev),
+                          int(world.twig.shape[0]), 8)
+    lanes = torch.full((4,), 11, dtype=torch.int64, device=dev)
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+    def state():
+        return (rows.o, rows.d, rows.t, rows.orig, rows.charge, flag,
+                *(getattr(res, k) for k in FIELDS), sink.slot, sink.t0, sink.t1, sink.count,
+                lanes)
+
+    snap = [t.clone() for t in state()]
+    for K in (0, 4):
+        table = MC.out_table(dev, None if K else res, sink if K else None, lanes)
+        MC.stage_launch(world, rows, flag, zero, 16, False, False, table, K, 256,
+                        sink.twig_slots, sink.num_materials)
+        torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(snap, state()))
 
 
 @pytest.mark.parametrize("m", [100, 2048, 20000])
