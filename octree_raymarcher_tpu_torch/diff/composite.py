@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..kernels import Kernel, ptr
+from ..utils.metrics import span
 from ..world.device import TorchWorld, resolve_device, to_device
 from .segments import SegmentBatch
 
@@ -135,9 +136,10 @@ def init_params_from_world(world: TorchWorld, materials=None, solid_density: flo
 
 
 def _background(sky, sky_rgb, like):
-    if sky_rgb is not None:
-        return to_device(sky_rgb, like.device)
-    return torch.tensor([float(v) for v in sky], dtype=torch.float32, device=like.device)
+    with span("fit.background"):
+        if sky_rgb is not None:
+            return to_device(sky_rgb, like.device)
+        return torch.tensor([float(v) for v in sky], dtype=torch.float32, device=like.device)
 
 
 def composite_plain(slot, t0, t1, density_raw, albedo_raw, bg, far: float = 8192.0):
@@ -286,17 +288,18 @@ class _Composite(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rgb, g_depth, g_opacity, g_weights):
-        slot, t0, t1, density_raw, albedo_raw, bg = ctx.saved_tensors
-        fn = _composite_bwd_cuda if slot.is_cuda else composite_backward_plain
-        with torch.no_grad():
-            d_density, d_albedo, d_bg = fn(slot, t0, t1, density_raw.detach(),
-                                           albedo_raw.detach(), bg.detach(), ctx.far,
-                                           g_rgb, g_depth, g_opacity, g_weights)
-        if not ctx.needs_input_grad[5]:
-            d_bg = None
-        elif bg.ndim == 1:
-            d_bg = d_bg.sum(dim=0)
-        return None, None, None, d_density, d_albedo, d_bg, None
+        with span("fit.composite_bwd"):
+            slot, t0, t1, density_raw, albedo_raw, bg = ctx.saved_tensors
+            fn = _composite_bwd_cuda if slot.is_cuda else composite_backward_plain
+            with torch.no_grad():
+                d_density, d_albedo, d_bg = fn(slot, t0, t1, density_raw.detach(),
+                                               albedo_raw.detach(), bg.detach(), ctx.far,
+                                               g_rgb, g_depth, g_opacity, g_weights)
+            if not ctx.needs_input_grad[5]:
+                d_bg = None
+            elif bg.ndim == 1:
+                d_bg = d_bg.sum(dim=0)
+            return None, None, None, d_density, d_albedo, d_bg, None
 
 
 def _check_segments(segments: SegmentBatch, params: VoxelParams):
@@ -321,15 +324,16 @@ def composite(segments: SegmentBatch, params: VoxelParams, sky=SKY, far: float =
     """Returns dict(rgb f32[N,3], depth f32[N], opacity f32[N], weights
     f32[N,K]), all differentiable in ``params`` (and in ``sky_rgb``, a
     per-ray background f32[N,3] that overrides the constant ``sky``)."""
-    _check_segments(segments, params)
-    bg = _background(sky, sky_rgb, params.density_raw)
-    if bg.shape not in ((3,), (segments.slot.shape[0], 3)):
-        raise ValueError(f"sky_rgb must be f32[N, 3], got {tuple(bg.shape)}")
-    rgb, depth, opacity, weights = _Composite.apply(
-        segments.slot.contiguous(), segments.t0.contiguous(), segments.t1.contiguous(),
-        params.density_raw.contiguous(), params.albedo_raw.contiguous(), bg.contiguous(),
-        float(far))
-    return {"rgb": rgb, "depth": depth, "opacity": opacity, "weights": weights}
+    with span("fit.composite"):
+        _check_segments(segments, params)
+        bg = _background(sky, sky_rgb, params.density_raw)
+        if bg.shape not in ((3,), (segments.slot.shape[0], 3)):
+            raise ValueError(f"sky_rgb must be f32[N, 3], got {tuple(bg.shape)}")
+        rgb, depth, opacity, weights = _Composite.apply(
+            segments.slot.contiguous(), segments.t0.contiguous(), segments.t1.contiguous(),
+            params.density_raw.contiguous(), params.albedo_raw.contiguous(), bg.contiguous(),
+            float(far))
+        return {"rgb": rgb, "depth": depth, "opacity": opacity, "weights": weights}
 
 
 def render_soft(world: TorchWorld, params: VoxelParams, origins, dirs, max_segments: int = 32,

@@ -5,12 +5,18 @@ rendered by the hard renderer, then Adam on the per-view L2 photometric
 loss, which differentiates through composite() (K5 forward, K6 backward)
 down to every voxel parameter.  ``torch.optim.Adam`` takes the place of
 ``optax.adam`` with the same defaults (betas 0.9/0.999, eps 1e-8).
+
+Under ``torch.profiler`` :func:`sample_views` records the span
+``fit.sample`` and :func:`photometric_loss` ``fit.loss``, around the
+``fit.composite`` (with ``fit.background``) of each view; the backward
+records ``fit.composite_bwd`` (diff/composite.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from ..world.device import resolve_device, to_device
 from .composite import VoxelParams, composite
 from .segments import sample_segments_frame
@@ -28,22 +34,25 @@ def sample_views(world, views, max_segments: int = 32, max_steps: int = 512,
     reference and ignored."""
     dev = resolve_device(device)
     cached = []
-    for o, d, target in views:
-        if compact:
-            segs, _ = sample_segments_compact(world, o, d, max_segments, max_steps, device=dev)
-        else:
-            segs = sample_segments_frame(world, o, d, max_segments, max_steps, device=dev)
-        cached.append((segs, to_device(target, dev)))
+    with span("fit.sample"):
+        for o, d, target in views:
+            if compact:
+                segs, _ = sample_segments_compact(world, o, d, max_segments, max_steps,
+                                                  device=dev)
+            else:
+                segs = sample_segments_frame(world, o, d, max_segments, max_steps, device=dev)
+            cached.append((segs, to_device(target, dev)))
     return cached
 
 
 def photometric_loss(params: VoxelParams, cached):
     """Mean per-view L2 photometric loss over pre-sampled (segs, target)."""
-    total = 0.0
-    for segs, target in cached:
-        out = composite(segs, params)
-        total = total + torch.mean((out["rgb"] - target) ** 2)
-    return total / len(cached)
+    with span("fit.loss"):
+        total = 0.0
+        for segs, target in cached:
+            out = composite(segs, params)
+            total = total + torch.mean((out["rgb"] - target) ** 2)
+        return total / len(cached)
 
 
 def make_loss_fn(world, views, max_segments: int = 32, max_steps: int = 512, device="cuda"):

@@ -160,7 +160,11 @@ def c_floats(values):
 
 
 class Kernel:
-    """One C entry point of the library, with a count of its launches."""
+    """One C entry point of the library, with a count of its launches
+    (``launches``) and of all kernels' launches in the process
+    (``Kernel.total_launches``, which the spans of utils/metrics.py read)."""
+
+    total_launches = 0
 
     def __init__(self, symbol: str):
         self.symbol = symbol
@@ -174,6 +178,7 @@ class Kernel:
             msg = lib.ort_error_string(err).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {err} ({msg})")
         self.launches += 1
+        Kernel.total_launches += 1
 
 
 __all__ = ["Kernel", "c_floats", "build", "build_log", "library", "library_path", "nvcc", "ptr"]

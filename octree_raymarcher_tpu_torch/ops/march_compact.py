@@ -387,8 +387,9 @@ def _run_stage(world, st: "CompactFrameState", cap, final, assume_resident):
 class CapturedCall:
     """A compacted call's launches captured once in a CUDA graph, with the
     static buffers they read and write (``bufs``) and how many launches of
-    each kernel a replay makes (``launches``; the capture launches nothing,
-    so the counts move at each replay instead)."""
+    each kernel a replay makes (``launches``, ``total`` in all; the capture
+    launches nothing, so the counts and ``Kernel.total_launches`` move at
+    each replay instead)."""
 
     def __init__(self, key, bufs: dict, build):
         self.key, self.bufs = key, bufs
@@ -407,11 +408,14 @@ class CapturedCall:
         self.launches = {k: k.launches - before[k] for k in KERNELS}
         for k, c in self.launches.items():
             k.launches -= c
+        self.total = sum(self.launches.values())
+        Kernel.total_launches -= self.total
 
     def replay(self) -> None:
         self.graph.replay()
         for k, c in self.launches.items():
             k.launches += c
+        Kernel.total_launches += self.total
 
 
 _GRAPHS = {kind: collections.OrderedDict() for kind in GRAPH_SLOTS}

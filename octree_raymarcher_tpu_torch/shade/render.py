@@ -19,6 +19,11 @@ shadow_resolve takes), then the same K2.
 
 On CPU tensors every stage runs its plain PyTorch version.
 
+Under ``torch.profiler`` a frame records the spans (utils/metrics.py
+``span``) ``render.frame`` and, inside it, ``render.light_pass``,
+``render.march``, ``render.shadow_rays`` and ``render.shade`` around those
+stages.
+
 The frame is differentiable as the reference's is: with respect to the
 light rig, the material table's diffuse, specular and shininess, the atlas,
 the sky map, the eye, and the ray origins and directions with the march
@@ -44,6 +49,7 @@ from ..core.geometry import const, cube_normal, cube_uv, inverse_depth, length
 from ..kernels import Kernel, c_floats, ptr
 from ..ops.march import MarchResult, march
 from ..ops.march_compact import march_frame_compact
+from ..utils.metrics import span
 from ..world.device import TorchWorld, resolve_device, to_device
 from .envmap import sample_env
 from .lights import LightRig
@@ -567,17 +573,21 @@ def render(
                 "TracerArrayConversionError there), so it cannot differentiate with respect "
                 "to that direction; pass shadowmap=render_shadowmap(world, lights) to "
                 "differentiate the map-shadowed frame")
-        shadowmap = render_shadowmap(world, lights, max_steps=cfg.max_steps,
-                                     assume_resident=cfg.assume_resident)
-    res = march(world, om, dm, cfg.max_steps, steps_aov=bool(cfg.steps_aov),
-                assume_resident=cfg.assume_resident, device=dev)
+        with span("render.light_pass"):
+            shadowmap = render_shadowmap(world, lights, max_steps=cfg.max_steps,
+                                         assume_resident=cfg.assume_resident)
+    with span("render.march"):
+        res = march(world, om, dm, cfg.max_steps, steps_aov=bool(cfg.steps_aov),
+                    assume_resident=cfg.assume_resident, device=dev)
     shadow_factor = None
     if cfg.shadow == "ray":
-        shadow_factor = _ray_shadow_hits(world, res, om, dm, lights, cfg)
+        with span("render.shadow_rays"):
+            shadow_factor = _ray_shadow_hits(world, res, om, dm, lights, cfg)
     if cfg.shadow != "map":
         shadowmap = None
-    return shade_hits(res, o, d, eye, lights, materials, cfg, shadow_factor=shadow_factor,
-                      atlas=atlas, envmap=envmap, shadowmap=shadowmap)
+    with span("render.shade"):
+        return shade_hits(res, o, d, eye, lights, materials, cfg, shadow_factor=shadow_factor,
+                          atlas=atlas, envmap=envmap, shadowmap=shadowmap)
 
 
 def render_frame(
@@ -611,38 +621,44 @@ def render_frame(
     AOV dict is the same, but ``steps`` carries the coarse charge, and
     ``"lane_iters"`` (a 0-d int64 tensor) sums the executed lanes of all of
     the frame's compacted marches, as the reference's does."""
-    if not compact:
-        return render(world, origins, dirs, eye, lights, materials, cfg, atlas,
-                      envmap=envmap, device=device)
-    _check_shadow(cfg)
-    lights = LightRig.default() if lights is None else lights
-    materials = MaterialTable.default() if materials is None else materials
-    dev = resolve_device(device)
-    o = to_device(origins, dev)
-    d = to_device(dirs, dev)
-    om = o.detach() if o.requires_grad else o
-    dm = d.detach() if d.requires_grad else d
-    march_kw = dict(stride=compact_stride, assume_resident=cfg.assume_resident,
-                    schedule=compact_schedule, device=dev)
-    shadowmap = lane_iters = None
-    if cfg.shadow == "map":
-        depth, vp, lane_iters = render_shadowmap(world, lights, max_steps=cfg.max_steps,
-                                                 compact=True,
-                                                 assume_resident=cfg.assume_resident)
-        shadowmap = (depth, vp)
-    res, frame_iters = march_frame_compact(world, om, dm, cfg.max_steps, **march_kw)
-    lane_iters = frame_iters if lane_iters is None else lane_iters + frame_iters
-    shadow_factor = None
-    if cfg.shadow == "ray":
-        start, sdirs, live = ray_prep(res, om, dm, light_dir(lights))
-        sres, shadow_iters = march_frame_compact(world, start, sdirs, cfg.max_steps,
-                                                 live_start=live, **march_kw)
-        shadow_factor = (res.hit & sres.hit).to(torch.float32)
-        lane_iters = lane_iters + shadow_iters
-    out = shade_hits(res, o, d, eye, lights, materials, cfg, shadow_factor=shadow_factor,
-                     atlas=atlas, envmap=envmap, shadowmap=shadowmap)
-    out["lane_iters"] = lane_iters
-    return out
+    with span("render.frame"):
+        if not compact:
+            return render(world, origins, dirs, eye, lights, materials, cfg, atlas,
+                          envmap=envmap, device=device)
+        _check_shadow(cfg)
+        lights = LightRig.default() if lights is None else lights
+        materials = MaterialTable.default() if materials is None else materials
+        dev = resolve_device(device)
+        o = to_device(origins, dev)
+        d = to_device(dirs, dev)
+        om = o.detach() if o.requires_grad else o
+        dm = d.detach() if d.requires_grad else d
+        march_kw = dict(stride=compact_stride, assume_resident=cfg.assume_resident,
+                        schedule=compact_schedule, device=dev)
+        shadowmap = lane_iters = None
+        if cfg.shadow == "map":
+            with span("render.light_pass"):
+                depth, vp, lane_iters = render_shadowmap(world, lights, max_steps=cfg.max_steps,
+                                                         compact=True,
+                                                         assume_resident=cfg.assume_resident)
+            shadowmap = (depth, vp)
+        with span("render.march"):
+            res, frame_iters = march_frame_compact(world, om, dm, cfg.max_steps, **march_kw)
+        lane_iters = frame_iters if lane_iters is None else lane_iters + frame_iters
+        shadow_factor = None
+        if cfg.shadow == "ray":
+            with span("render.shadow_rays"):
+                start, sdirs, live = ray_prep(res, om, dm, light_dir(lights))
+                sres, shadow_iters = march_frame_compact(world, start, sdirs, cfg.max_steps,
+                                                         live_start=live, **march_kw)
+                shadow_factor = (res.hit & sres.hit).to(torch.float32)
+            lane_iters = lane_iters + shadow_iters
+        with span("render.shade"):
+            out = shade_hits(res, o, d, eye, lights, materials, cfg,
+                             shadow_factor=shadow_factor, atlas=atlas, envmap=envmap,
+                             shadowmap=shadowmap)
+        out["lane_iters"] = lane_iters
+        return out
 
 
 __all__ = ["RenderConfig", "render", "render_frame", "render_shadowmap", "shadow_bundle",
