@@ -50,7 +50,9 @@ order, and then:
      plain versions at 1080p and K=32, on the bench segments and on a
      contention batch made on the card from a seed (every valid segment on
      the 8 coarse-LEAF slots, invalid slots interleaved), times both with
-     their achieved GB/s and share of the bound; runs fit() for 5 Adam steps toward the shadowless frame (counters zeroed just before,
+     their achieved GB/s and share of the bound; holds K6's column counter
+     to the count from the slots (the share of columns past each tile's
+     last valid one); runs fit() for 5 Adam steps toward the shadowless frame (counters zeroed just before,
      read just after), times the geometry pass, one step and the full step,
      and checks the soft golden on the card.
  11. the edited-world session: packs the bench world again with room for
@@ -1660,6 +1662,7 @@ def main() -> int:
         composite,
         composite_backward_plain,
         composite_plain,
+        composite_plan,
     )
     from octree_raymarcher_tpu_torch.diff import fit, init_params_from_world, render_soft
     from octree_raymarcher_tpu_torch.diff.optim import photometric_loss, sample_views
@@ -2283,6 +2286,31 @@ def main() -> int:
 
     bwd_err = check_k6(segs, "bench segments")
 
+    def check_columns(b, batch):
+        """K6's column counter against the count from the slots: each tile
+        of composite_plan's rays, rows x K walked, rows x (K - cut) past its
+        last valid column; returns the skipped share."""
+        cols = torch.zeros(2, dtype=torch.int64, device=dev)
+        _composite_bwd_cuda(b.slot, b.t0, b.t1, params0.density_raw, params0.albedo_raw, sky,
+                            8192.0, ups[0], None, None, None, bg_grad=False, columns=cols)
+        rays = composite_plan(K, True).rays
+        valid = b.slot >= 0
+        last = torch.where(valid, torch.arange(1, K + 1, device=dev), 0).amax(dim=1)
+        pad = -n % rays
+        tiles = torch.nn.functional.pad(last, (0, pad)).view(-1, rays).amax(dim=1)
+        rows = torch.full_like(tiles, rays)
+        rows[-1] = rays - pad
+        want = [n * K, int((rows * (K - tiles)).sum())]
+        got = cols.tolist()
+        print(f"phase 10 K6 columns ({batch}): walked {got[0]}, past each tile's last valid "
+              f"column {got[1]} ({got[1] / max(got[0], 1):.4f}); from the slots {want}",
+              flush=True)
+        if got != want:
+            fail(f"K6's column counter {got} disagrees with the slots' count {want} ({batch})")
+        return got[1] / max(got[0], 1)
+
+    skipped_share = check_columns(segs, "bench segments")
+
     def kernel_times(b):
         """(K5, K6 with all four upstream gradients, K6 with rgb's alone) ms."""
         args = (b.slot, b.t0, b.t1, params0.density_raw, params0.albedo_raw, sky, 8192.0)
@@ -2315,7 +2343,8 @@ def main() -> int:
           f"{bwd_ms:.4f} ms with all four upstream gradients, {fit_bwd_ms:.4f} ms with rgb "
           f"only (plain {bwd_plain_ms:.2f}); bound K5 {b_fwd[0]:.4f} ms ({fwd_bytes} bytes), "
           f"K6 {b_bwd[0]:.4f} ms ({bwd_bytes} bytes; rgb only {b_fit_bwd[0]:.4f} ms, "
-          f"{fit_bwd_bytes} bytes); achieved {rates}", flush=True)
+          f"{fit_bwd_bytes} bytes); achieved {rates}; K6 skipped {skipped_share:.4f} of the "
+          f"columns (past each tile's last valid one)", flush=True)
 
     # contention: every valid segment on one of the 8 coarse-LEAF slots, runs
     # of one slot within rays, invalid slots interleaved; made on the card

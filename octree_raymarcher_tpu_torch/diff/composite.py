@@ -39,48 +39,77 @@ SKY = (0.45, 0.65, 0.95)
 SMEM_DEFAULT = 48 * 1024  # a block's shared memory without raising the kernel's limit
 HOT_SLOTS = 8           # the coarse-LEAF slots K6 sums on chip: init_params_from_world's
                         # num_materials, the last slots of the layout
-TILE_RAYS = 64          # rays per tile = threads per block (csrc/composite.cu kRays)
-CHUNK = 16              # columns of a row staged at once (kChunk)
+TILE_RAYS = 64          # K5: rays per tile = threads per block (csrc/composite.cu kRays)
+LANES = 2               # K6: lanes a ray, each on every LANES-th column (kLanes)
+WARP_RAYS = 32 // LANES  # K6: rays per tile, one warp a block (kTileRays)
+CHUNK = 16              # columns of a row staged at once (kChunk): K5, and K6's long rows
+BLOCKS_PER_SM = 32      # resident blocks an SM holds at most: K6's scratch has room for
+                        # that many one-warp blocks per SM
 
 
 @dataclasses.dataclass(frozen=True)
 class CompositePlan:
     """How K5 or K6 tiles the [N, K] segments (csrc/composite.cu)."""
-    rays: int     # rays per tile = threads per block, whole warps
-    chunk: int    # columns of a row staged at once (the whole row when K <= CHUNK)
+    rays: int     # rays per tile; rays x lanes = threads per block, whole warps
+    chunk: int    # columns of a row staged at once (K6: the whole row when it fits)
     smem: int     # bytes of dynamic shared memory per block
-    prefix_on_chip: bool = True   # K6: prefix sums in shared memory, else global scratch
+    prefix_on_chip: bool = True   # K6: kept values in shared memory, else global scratch
+    lanes: int = 1                # threads a ray (K6: LANES)
+
+
+def _bwd_stride(chunk: int) -> int:
+    """csrc/composite.cu bwd_stride: words of a staged row in K6, LANES x
+    an odd count, so that a warp's lanes (LANES to a row, each on its own
+    column) hit 32 different banks."""
+    return LANES * (-(-chunk // LANES) | 1)
+
+
+def _kept_values(whole: bool, depth: bool) -> int:
+    """csrc/composite.cu kept_values: values K6 keeps per column between its
+    passes.  Whole rows: dl and C_k (and the midpoint for a depth
+    gradient), tau and d sigma/dx taking the places of t0 and t1; rows in
+    chunks: tau, d sigma/dx and C_k."""
+    return 2 + int(depth) if whole else 3
 
 
 def _smem_bytes(chunk: int, K: int, arrays: int, backward: bool,
-                prefix_on_chip: bool = True) -> int:
-    """csrc/composite.cu smem_floats, in bytes: ``arrays`` planes of
-    TILE_RAYS x (chunk | 1); K5's weight plane; K6's prefix sums (TILE_RAYS
-    x (K | 1), when on chip), hot table and per-warp exchange buffer."""
-    floats = arrays * TILE_RAYS * (chunk | 1)
+                prefix_on_chip: bool = True, g_depth: bool = False) -> int:
+    """csrc/composite.cu smem_floats (K5) and bwd_smem_floats (K6), in
+    bytes.  K5: ``arrays`` planes of TILE_RAYS x (chunk | 1) and the weight
+    plane.  K6: ``arrays`` planes of WARP_RAYS rows of _bwd_stride(chunk)
+    words and, on chip, the kept values (_kept_values x K x WARP_RAYS)."""
     if not backward:
-        return 4 * (floats + TILE_RAYS * (chunk | 1))
+        return 4 * (arrays + 1) * TILE_RAYS * (chunk | 1)
+    floats = arrays * WARP_RAYS * _bwd_stride(chunk)
     if prefix_on_chip:
-        floats += TILE_RAYS * (K | 1)
-    return 4 * (floats + 4 * HOT_SLOTS + 4 * TILE_RAYS)
+        floats += _kept_values(chunk >= K, g_depth) * K * WARP_RAYS
+    return 4 * floats
 
 
-def composite_plan(K: int, backward: bool, g_weights: bool = False) -> CompositePlan:
+def composite_plan(K: int, backward: bool, g_weights: bool = False,
+                   g_depth: bool = False) -> CompositePlan:
     """The launch plan of K5 (``backward=False``) or K6 for rows of K
-    segments; ``g_weights`` says K6 stages an upstream dL/dweights too.
+    segments; ``g_weights`` says K6 stages an upstream dL/dweights too,
+    ``g_depth`` that it keeps each segment's midpoint for dL/ddepth.
 
-    Tiles of 64 rays with rows staged 16 columns at a time in one buffer:
-    a block needs ~23 KB and about nine blocks share an SM, which on the
-    H100 beat double-buffered whole rows (fewer, larger blocks) at the
-    training path's K = 32 (PERF.md).  K6 keeps its prefix sums in
-    shared memory while the block stays within 48 KB (K up to ~120), else
-    in a global scratch, so that a long row costs no blocks per SM.  Every
-    K >= 0 has a plan."""
-    arrays = 4 if backward and g_weights else 3
-    chunk = min(max(int(K), 1), CHUNK)
-    on_chip = _smem_bytes(chunk, K, arrays, backward) <= SMEM_DEFAULT
-    return CompositePlan(TILE_RAYS, chunk, _smem_bytes(chunk, K, arrays, backward, on_chip),
-                         on_chip)
+    K5: tiles of 64 rays with rows staged 16 columns at a time in one
+    buffer.  K6: one warp a block and a tile of 16 rays, two lanes a ray;
+    the whole rows are staged once and the values its reverse pass reads
+    kept in shared memory while the block stays within 48 KB (K up to 153;
+    126 with dL/dweights or dL/ddepth, 109 with both; 10,624 bytes at the
+    training path's K = 32); past that rows are staged 16 columns at a time
+    with the kept values still on chip (K up to 238, 232 with dL/dweights),
+    then in a global scratch.  Every K >= 0 has a plan."""
+    if not backward:
+        chunk = min(max(int(K), 1), CHUNK)
+        return CompositePlan(TILE_RAYS, chunk, _smem_bytes(chunk, K, 3, False))
+    arrays = 4 if g_weights else 3
+    chunk = max(int(K), 1)
+    if _smem_bytes(chunk, K, arrays, True, True, g_depth) > SMEM_DEFAULT:
+        chunk = CHUNK
+    on_chip = _smem_bytes(chunk, K, arrays, True, True, g_depth) <= SMEM_DEFAULT
+    return CompositePlan(WARP_RAYS, chunk, _smem_bytes(chunk, K, arrays, True, on_chip, g_depth),
+                         on_chip, LANES)
 
 
 @dataclasses.dataclass
@@ -243,28 +272,34 @@ def _composite_fwd_cuda(slot, t0, t1, density_raw, albedo_raw, bg, far):
 
 
 def _composite_bwd_cuda(slot, t0, t1, density_raw, albedo_raw, bg, far, g_rgb, g_depth,
-                        g_opacity, g_weights):
+                        g_opacity, g_weights, bg_grad=True, columns=None):
     """K6.  The last 8 slots (the coarse-LEAF slots of
     init_params_from_world's layout) are summed per block before their
-    atomics: a hint from the layout, not a condition of correctness."""
+    atomics: a hint from the layout, not a condition of correctness.
+    With ``bg_grad`` false no d_bg is written and None is returned for it.
+    ``columns``, an int64[2] on the card or None, is added to: the columns
+    of the tiles K6 walked and those past each tile's last valid column."""
     n, K = slot.shape
     dev = slot.device
     P = density_raw.shape[0]
     hot_lo = max(P - HOT_SLOTS, 0)
-    plan = composite_plan(K, backward=True, g_weights=g_weights is not None)
-    scratch = None
-    if not plan.prefix_on_chip:          # prefix sums per tile in global: [tile][k][ray]
-        tiles = -(-n // plan.rays)
-        scratch = torch.empty(tiles * plan.rays * K, dtype=torch.float32, device=dev)
+    plan = composite_plan(K, backward=True, g_weights=g_weights is not None,
+                          g_depth=g_depth is not None)
+    scratch, blocks = None, 0
+    if not plan.prefix_on_chip:          # kept values per resident block: [value][k][ray]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        blocks = min(-(-n // plan.rays), sms * BLOCKS_PER_SM)
+        scratch = torch.empty(blocks * _kept_values(False, False) * K * plan.rays,
+                              dtype=torch.float32, device=dev)
     d_density = torch.zeros_like(density_raw)
     d_albedo = torch.zeros_like(albedo_raw)
-    d_bg = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    d_bg = torch.empty((n, 3), dtype=torch.float32, device=dev) if bg_grad else None
     grads = [None if g is None else g.contiguous() for g in (g_rgb, g_depth, g_opacity,
                                                              g_weights)]
     COMPOSITE_BWD_KERNEL(ptr(slot), ptr(t0), ptr(t1), ptr(density_raw), ptr(albedo_raw),
                          ptr(bg), int(bg.ndim == 2), float(far), n, K, P, plan.smem, hot_lo,
-                         *(ptr(g) for g in grads), ptr(scratch), ptr(d_density),
-                         ptr(d_albedo), ptr(d_bg))
+                         *(ptr(g) for g in grads), ptr(scratch), blocks, ptr(d_density),
+                         ptr(d_albedo), ptr(d_bg), ptr(columns))
     return d_density, d_albedo, d_bg
 
 
@@ -290,11 +325,14 @@ class _Composite(torch.autograd.Function):
     def backward(ctx, g_rgb, g_depth, g_opacity, g_weights):
         with span("fit.composite_bwd"):
             slot, t0, t1, density_raw, albedo_raw, bg = ctx.saved_tensors
-            fn = _composite_bwd_cuda if slot.is_cuda else composite_backward_plain
+            args = (slot, t0, t1, density_raw.detach(), albedo_raw.detach(), bg.detach(),
+                    ctx.far, g_rgb, g_depth, g_opacity, g_weights)
             with torch.no_grad():
-                d_density, d_albedo, d_bg = fn(slot, t0, t1, density_raw.detach(),
-                                               albedo_raw.detach(), bg.detach(), ctx.far,
-                                               g_rgb, g_depth, g_opacity, g_weights)
+                if slot.is_cuda:
+                    d_density, d_albedo, d_bg = _composite_bwd_cuda(
+                        *args, bg_grad=ctx.needs_input_grad[5])
+                else:
+                    d_density, d_albedo, d_bg = composite_backward_plain(*args)
             if not ctx.needs_input_grad[5]:
                 d_bg = None
             elif bg.ndim == 1:

@@ -49,7 +49,8 @@ SIGNATURES = {
     "ort_map_project": [_P] * 6 + [_I, _I, _P, _F, _I64, _P] + [_P],
     "ort_segments": _WORLD + [_P, _P, _I64] + [_I] * 9 + [_P] * 4 + [_P],
     "ort_composite_fwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I] + [_P] * 4 + [_P],
-    "ort_composite_bwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I, _I64] + [_P] * 8 + [_P],
+    "ort_composite_bwd": [_P] * 6 + [_I, _F, _I64, _I, _I64, _I, _I64] + [_P] * 5 + [_I64]
+                         + [_P] * 4 + [_P],
     "ort_patch": [_P] * 8 + [_I, _I] + [_P],
     "ort_compact_entry": _WORLD + [_P] * 3 + [_I64] + [_P] * 2 + [_I, _P, _I] + [_P],
     "ort_compact_stage": _WORLD + [_P] * 7 + [_I64] + [_I] * 3 + [_P] + [_I] * 5 + [_P],

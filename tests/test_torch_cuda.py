@@ -29,6 +29,7 @@ from octree_raymarcher_tpu_torch.diff.composite import (
     COMPOSITE_BWD_KERNEL,
     COMPOSITE_FWD_KERNEL,
     VoxelParams,
+    _composite_bwd_cuda,
     composite,
     composite_backward_plain,
     composite_plain,
@@ -881,19 +882,39 @@ COMPOSITE_CASES = {
     "k33_mixed": (100, 33, 500, 0.4),
 }
 
+# Batches for K6's schedule: name -> (N, K, P, share of segments on the 8
+# hot slots, rows).  Rows are "prefix" (a valid prefix, then padding, as K4
+# writes them), "full" (no padding) or "empty_tile" (prefix rows, and rows
+# 16 to 31, one whole tile, all invalid).  N is not a multiple of a tile's
+# 16 rays; K = 16 and 17 sit at the stride's boundary, 32 is the training
+# path's, 160 stages rows in chunks with the kept values on chip.
+K6_CASES = {
+    "k32_prefix_hot": (4100, 32, 5000, 0.5, "prefix"),
+    "k32_full": (700, 32, 900, 0.5, "full"),
+    "k32_empty_tile": (50, 32, 300, 0.5, "empty_tile"),
+    "k16_prefix": (1000, 16, 700, 0.5, "prefix"),
+    "k17_prefix": (1000, 17, 700, 0.5, "prefix"),
+    "k160_chunks": (200, 160, 2000, 0.5, "prefix"),
+}
 
-def composite_case(n, K, P, hot, seed=0):
+
+def composite_case(n, K, P, hot, seed=0, rows="random"):
     """(slot, t0, t1, density_raw, albedo_raw, bg, [g_rgb, g_depth,
-    g_opacity, g_weights]) as numpy arrays made from ``seed``."""
+    g_opacity, g_weights]) as numpy arrays made from ``seed``.  ``rows``:
+    "random" puts invalid slots anywhere in a row and as trailing padding;
+    else as K6_CASES describes."""
     rng = np.random.default_rng(seed)
     slot = np.where(rng.uniform(size=(n, K)) < hot,
                     rng.integers(max(P - 8, 0), P, (n, K)), rng.integers(0, P, (n, K)))
     for k in range(1, K):                       # runs: repeat the previous slot
         rep = rng.uniform(size=n) < 0.5
         slot[rep, k] = slot[rep, k - 1]
-    slot[rng.uniform(size=(n, K)) < 0.25] = -1  # invalid anywhere in a row
-    count = rng.integers(0, K + 1, n)
+    if rows == "random":
+        slot[rng.uniform(size=(n, K)) < 0.25] = -1  # invalid anywhere in a row
+    count = np.full(n, K) if rows == "full" else rng.integers(0, K + 1, n)
     slot[np.arange(K)[None, :] >= count[:, None]] = -1
+    if rows == "empty_tile":
+        slot[16:32] = -1
     t0 = np.cumsum(rng.uniform(0.0, 0.3, (n, K)), axis=1) + rng.uniform(0.0, 5.0, (n, 1))
     t1 = t0 + rng.uniform(-0.05, 0.3, (n, K))   # a few empty (t1 < t0) segments
     f32 = np.float32
@@ -917,8 +938,8 @@ def _scene_batch(gpu_scene):
     return segs, VoxelParams(p0.density_raw + noise[0], p0.albedo_raw + noise[1]), bg, g
 
 
-def _synthetic_batch(n, K, P, hot):
-    arrays = composite_case(n, K, P, hot)
+def _synthetic_batch(n, K, P, hot, rows="random"):
+    arrays = composite_case(n, K, P, hot, rows=rows)
     slot, t0, t1, dr, ar, bg = (torch.from_numpy(x).cuda() for x in arrays[:6])
     g = [torch.from_numpy(x).cuda() for x in arrays[6]]
     segs = SegmentBatch(slot, t0, t1, (slot >= 0).sum(dim=1, dtype=torch.int32))
@@ -931,17 +952,22 @@ def _k6_close(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6 * max(scale, 1.0))
 
 
-@pytest.mark.parametrize("case", ["scene", *COMPOSITE_CASES, "k300_scratch"])
+def _case_batch(gpu_scene, case):
+    if case == "scene":
+        return _scene_batch(gpu_scene)
+    if case == "k300_scratch":
+        return _synthetic_batch(50, 300, 400, 0.3)
+    return _synthetic_batch(*(COMPOSITE_CASES.get(case) or K6_CASES[case]))
+
+
+@pytest.mark.parametrize("case", ["scene", *COMPOSITE_CASES, "k300_scratch", *K6_CASES])
 def test_composite_kernels_match_plain(gpu_scene, case):
     """K5 and K6 against their plain versions: on K4's segments of the
-    scene, on the synthetic batches, and at a K past the on-chip plan (K6's
-    prefix sums in global scratch); K6 with all four upstream gradients and
-    with rgb's alone (fit's path)."""
-    if case == "scene":
-        segs, p, bg, g = _scene_batch(gpu_scene)
-    else:
-        shape = (50, 300, 400, 0.3) if case == "k300_scratch" else COMPOSITE_CASES[case]
-        segs, p, bg, g = _synthetic_batch(*shape)
+    scene, on the synthetic batches, at a K past the on-chip plan (K6's
+    kept values in global scratch), and on the batches of K6's schedule;
+    K6 with all four upstream gradients and with rgb's alone (fit's path),
+    one launch a backward call."""
+    segs, p, bg, g = _case_batch(gpu_scene, case)
     n, K = segs.slot.shape
     assert composite_plan(K, True).prefix_on_chip == (case != "k300_scratch")
     fb = (COMPOSITE_FWD_KERNEL.launches, COMPOSITE_BWD_KERNEL.launches)
@@ -966,6 +992,30 @@ def test_composite_kernels_match_plain(gpu_scene, case):
     want = composite_backward_plain(segs.slot, segs.t0, segs.t1, p.density_raw,
                                     p.albedo_raw, bg, 8192.0, g[0], None, None, None)
     _k6_close((leaf.density_raw.grad, leaf.albedo_raw.grad), want[:2])
+
+
+@pytest.mark.parametrize("case", ["scene", *COMPOSITE_CASES, "k300_scratch", *K6_CASES])
+def test_composite_bwd_column_counter(gpu_scene, case):
+    """K6's column counter against the host's count from the slots: every
+    tile of composite_plan's rays adds its rows x K columns walked and its
+    rows x (K - cut) columns past its last valid one."""
+    segs, p, bg, g = _case_batch(gpu_scene, case)
+    n, K = segs.slot.shape
+    rays = composite_plan(K, True).rays
+    columns = torch.zeros(2, dtype=torch.int64, device="cuda")
+    before = COMPOSITE_BWD_KERNEL.launches
+    _composite_bwd_cuda(segs.slot, segs.t0, segs.t1, p.density_raw, p.albedo_raw, bg, 8192.0,
+                        g[0], None, None, None, columns=columns)
+    assert COMPOSITE_BWD_KERNEL.launches == before + 1
+    valid = (segs.slot >= 0).cpu().numpy()
+    last = np.where(valid.any(axis=1), K - np.argmax(valid[:, ::-1], axis=1), 0)
+    walked = skipped = 0
+    for r0 in range(0, n, rays):
+        rows = min(rays, n - r0)
+        cut = int(last[r0:r0 + rows].max())
+        walked += rows * K
+        skipped += rows * (K - cut)
+    assert columns.tolist() == [walked, skipped]
 
 
 POOLS = ("tree", "twig", "twig_occ", "chunk_bmin", "chunk_tree", "chunk_twig", "chunkcoordmin")
