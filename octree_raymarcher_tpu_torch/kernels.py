@@ -17,6 +17,7 @@ involved.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -88,11 +89,22 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/*.cu (one nvcc per source, all at once) and link them
-    into one shared library; returns its path.  Cached by content."""
+    into one shared library; returns its path.  Cached by content.  The
+    processes of one host (a rank a card) that ask at once build it once:
+    the first takes an exclusive lock on the library's ``.lock`` file, the
+    others wait for it and load what it built."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(so.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)        # released when the file closes or the process ends
+        if not so.exists():
+            _compile(so)
+    return so
+
+
+def _compile(so: Path) -> None:
     cu, _ = _sources()
     tool = nvcc()
     objs, procs = [], []
@@ -117,7 +129,6 @@ def build() -> Path:
     if link.returncode != 0:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, so)
-    return so
 
 
 def build_log() -> str:

@@ -18,6 +18,15 @@ voxel parameters are whole on every rank, and:
 
 The batch must split evenly over the ranks (:func:`pad_rays` pads it).
 
+Spans (utils/metrics.py ``span``, recorded only under ``torch.profiler``):
+each train step is one ``fit.shard_step``; each collective's launch one
+``fit.allreduce`` (the gradients' ``all_reduce`` or ``reduce_scatter_tensor``,
+the loss's ``all_reduce``, and the ``all_gather_into_tensor`` of the
+renders, the marches and the ZeRO step's params); the waits on a step's
+asynchronous collectives one ``fit.allreduce_wait``.  Every collective adds
+the bytes handed to it to ``Collectives.total_bytes``, which each span
+records.
+
 Optimizer.  The reference takes an optax transform; here ``optimizer`` is a
 factory of ``torch.optim.Optimizer`` over a list of tensors, for example
 ``functools.partial(torch.optim.Adam, lr=1e-2)`` (Adam's defaults, betas
@@ -40,12 +49,13 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..diff.composite import VoxelParams, composite
+from ..diff.composite import SKY, VoxelParams, composite
 from ..diff.optim import optimizer_step
 from ..diff.segments import sample_segments
 from ..ops.march import march
 from ..ops.march_compact import default_schedule, march_frame_compact
 from ..shade.render import render
+from ..utils.metrics import Collectives, span
 from ..world.device import to_device
 from .mesh import RayMesh
 
@@ -71,8 +81,39 @@ def _gather_rows(mesh: RayMesh, x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
     out = torch.empty((x.shape[0] * mesh.size,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
-    dist.all_gather_into_tensor(out, x, group=mesh.group)
+    with span("fit.allreduce"):
+        Collectives.add(x)
+        dist.all_gather_into_tensor(out, x, group=mesh.group)
     return out
+
+
+def _all_reduce(mesh: RayMesh, x: torch.Tensor, async_op: bool = False):
+    """Sum ``x`` over the ranks in place; the work handle when ``async_op``."""
+    with span("fit.allreduce"):
+        Collectives.add(x)
+        return dist.all_reduce(x, group=mesh.group, async_op=async_op)
+
+
+def _reduce_scatter(mesh: RayMesh, out: torch.Tensor, x: torch.Tensor):
+    """Sum ``x`` over the ranks into this rank's slice ``out``,
+    asynchronously; returns the work handle."""
+    with span("fit.allreduce"):
+        Collectives.add(x)
+        return dist.reduce_scatter_tensor(out, x, group=mesh.group, async_op=True)
+
+
+def _wait(works) -> None:
+    """Make the current stream wait for every collective in ``works``."""
+    with span("fit.allreduce_wait"):
+        for work in works:
+            work.wait()
+
+
+def _sky(mesh: RayMesh) -> torch.Tensor:
+    """The constant sky colour on the rank's device, made once per train
+    step function: handed to ``composite`` as its background, it costs no
+    copy from the host (and no wait on the stream) a tile."""
+    return torch.tensor(SKY, dtype=torch.float32, device=mesh.device)
 
 
 def render_sharded(mesh: RayMesh, world, origins, dirs, eye, **render_kwargs):
@@ -143,13 +184,14 @@ def march_sharded_compact(mesh: RayMesh, world, origins, dirs, max_steps: int = 
             ray_rows[:, 2].contiguous(), executed)
 
 
-def _tile_loss_grad(world, params: VoxelParams, o, d, target, max_segments: int):
+def _tile_loss_grad(world, params: VoxelParams, o, d, target, max_segments: int, sky):
     """Sum of squared rgb error over one tile of rays and its gradient in
-    (density_raw, albedo_raw): K4 (no grad), K5, then K6."""
+    (density_raw, albedo_raw): K4 (no grad), K5, then K6.  ``sky`` is the
+    background f32[3] on the tile's device."""
     segs = sample_segments(world, o, d, max_segments, device=o.device)
     leaves = [params.density_raw.detach().requires_grad_(True),
               params.albedo_raw.detach().requires_grad_(True)]
-    out = composite(segs, VoxelParams(*leaves))
+    out = composite(segs, VoxelParams(*leaves), sky_rgb=sky)
     loss = ((out["rgb"] - target) ** 2).sum()
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), list(grads)
@@ -168,7 +210,7 @@ def _tiles(nloc: int, grad_tiles: int):
 
 def _all_sum(mesh: RayMesh, x: torch.Tensor) -> torch.Tensor:
     x = x.reshape(1)
-    dist.all_reduce(x, group=mesh.group)
+    _all_reduce(mesh, x)
     return x.reshape(())
 
 
@@ -187,29 +229,30 @@ def make_sharded_train_step(mesh: RayMesh, world, optimizer, max_segments: int =
     sum, grouped per tile, so the two modes agree to ~1e-6 relative, not bit
     for bit (K6 also sums with atomics).  ``world`` is accepted for the
     reference's signature; the step marches the world it is given."""
+    sky = _sky(mesh)
 
     def train_step(params: VoxelParams, opt_state, world_, origins, dirs, targets):
-        n = origins.shape[0]
-        o, d = _block(origins, mesh), _block(dirs, mesh)
-        t = _block(targets, mesh)
-        loss = torch.zeros((), dtype=torch.float32, device=mesh.device)
-        tile_grads, works = [], []
-        for sl in _tiles(o.shape[0], grad_tiles):
-            li, gi = _tile_loss_grad(world_, params, o[sl], d[sl], t[sl], max_segments)
-            if overlap:
-                works += [dist.all_reduce(g, group=mesh.group, async_op=True) for g in gi]
-            loss = loss + li
-            tile_grads.append(gi)
-        for work in works:
-            work.wait()
-        grads = [functools.reduce(torch.add, gs) for gs in zip(*tile_grads)]
-        if not overlap:
-            for g in grads:
-                dist.all_reduce(g, group=mesh.group)
-        loss = _all_sum(mesh, loss) / n
-        leaves, opt_state = optimizer_step(optimizer, opt_state, _leaves(params),
-                                           [g / n for g in grads])
-        return VoxelParams(*(leaf.detach().clone() for leaf in leaves)), opt_state, loss
+        with span("fit.shard_step"):
+            n = origins.shape[0]
+            o, d = _block(origins, mesh), _block(dirs, mesh)
+            t = _block(targets, mesh)
+            loss = torch.zeros((), dtype=torch.float32, device=mesh.device)
+            tile_grads, works = [], []
+            for sl in _tiles(o.shape[0], grad_tiles):
+                li, gi = _tile_loss_grad(world_, params, o[sl], d[sl], t[sl], max_segments, sky)
+                if overlap:
+                    works += [_all_reduce(mesh, g, async_op=True) for g in gi]
+                loss = loss + li
+                tile_grads.append(gi)
+            _wait(works)
+            grads = [functools.reduce(torch.add, gs) for gs in zip(*tile_grads)]
+            if not overlap:
+                for g in grads:
+                    _all_reduce(mesh, g)
+            loss = _all_sum(mesh, loss) / n
+            leaves, opt_state = optimizer_step(optimizer, opt_state, _leaves(params),
+                                               [g / n for g in grads])
+            return VoxelParams(*(leaf.detach().clone() for leaf in leaves)), opt_state, loss
 
     return train_step
 
@@ -239,6 +282,7 @@ def make_zero_train_step(mesh: RayMesh, world, optimizer, max_segments: int = 32
     Matches make_sharded_train_step up to the regrouping of the gradient
     sums (~1e-6 relative)."""
     n_dev = mesh.size
+    sky = _sky(mesh)
 
     def my_shard(x: torch.Tensor) -> torch.Tensor:
         xp = _shard_pad(x, n_dev)
@@ -249,31 +293,31 @@ def make_zero_train_step(mesh: RayMesh, world, optimizer, max_segments: int = 32
         return optimizer([my_shard(p).detach().clone() for p in _leaves(params)])
 
     def train_step(params: VoxelParams, opt_state, world_, origins, dirs, targets):
-        o, d = _block(origins, mesh), _block(dirs, mesh)
-        t = _block(targets, mesh)
-        n_total = o.shape[0] * n_dev
-        loss = torch.zeros((), dtype=torch.float32, device=mesh.device)
-        tile_shards, works = [], []
-        for sl in _tiles(o.shape[0], grad_tiles):
-            li, gi = _tile_loss_grad(world_, params, o[sl], d[sl], t[sl], max_segments)
-            shards = []
-            for g in gi:
-                gp = _shard_pad(g, n_dev)
-                out = gp.new_empty((gp.shape[0] // n_dev,) + tuple(gp.shape[1:]))
-                works.append((dist.reduce_scatter_tensor(out, gp, group=mesh.group,
-                                                         async_op=True), gp))
-                shards.append(out)
-            loss = loss + li
-            tile_shards.append(shards)
-        for work, _ in works:
-            work.wait()
-        gshard = [functools.reduce(torch.add, gs) / n_total for gs in zip(*tile_shards)]
-        loss = _all_sum(mesh, loss) / n_total
-        leaves, opt_state = optimizer_step(optimizer, opt_state,
-                                           [my_shard(p) for p in _leaves(params)], gshard)
-        full = [_gather_rows(mesh, leaf.detach())[:p.shape[0]]
-                for leaf, p in zip(leaves, _leaves(params), strict=True)]
-        return VoxelParams(*full), opt_state, loss
+        with span("fit.shard_step"):
+            o, d = _block(origins, mesh), _block(dirs, mesh)
+            t = _block(targets, mesh)
+            n_total = o.shape[0] * n_dev
+            loss = torch.zeros((), dtype=torch.float32, device=mesh.device)
+            tile_shards, works, padded = [], [], []
+            for sl in _tiles(o.shape[0], grad_tiles):
+                li, gi = _tile_loss_grad(world_, params, o[sl], d[sl], t[sl], max_segments, sky)
+                shards = []
+                for g in gi:
+                    gp = _shard_pad(g, n_dev)
+                    out = gp.new_empty((gp.shape[0] // n_dev,) + tuple(gp.shape[1:]))
+                    works.append(_reduce_scatter(mesh, out, gp))
+                    padded.append(gp)       # alive until its collective is waited
+                    shards.append(out)
+                loss = loss + li
+                tile_shards.append(shards)
+            _wait(works)
+            gshard = [functools.reduce(torch.add, gs) / n_total for gs in zip(*tile_shards)]
+            loss = _all_sum(mesh, loss) / n_total
+            leaves, opt_state = optimizer_step(optimizer, opt_state,
+                                               [my_shard(p) for p in _leaves(params)], gshard)
+            full = [_gather_rows(mesh, leaf.detach())[:p.shape[0]]
+                    for leaf, p in zip(leaves, _leaves(params), strict=True)]
+            return VoxelParams(*full), opt_state, loss
 
     return init_opt_state, train_step
 

@@ -10,7 +10,9 @@ metrics logger instead of an on-screen HUD, and, for the stopwatches,
 :func:`span`, which names a layer's interval inside a ``torch.profiler``
 trace (so it sits on one timeline with the kernels it launches) and keeps
 a record of it in memory (:func:`span_records`).  Spans cost one read of
-the profiler's flag when no profiler is active.  ``Counter`` and
+the profiler's flag when no profiler is active.  :class:`Collectives`
+counts the bytes that ``parallel/`` hands to collectives, which each span
+records beside its kernel launches.  ``Counter`` and
 ``MetricsLogger`` are copies of octree_raymarcher_tpu/utils/metrics.py's.
 """
 
@@ -91,6 +93,19 @@ class MetricsLogger:
             self._fh = None
 
 
+class Collectives:
+    """Bytes handed to collectives by the port's ``parallel/`` layer (each
+    ``all_reduce``'s tensor, each ``reduce_scatter_tensor``'s and
+    ``all_gather_into_tensor``'s input), summed over the process's life,
+    whether or not a profiler runs."""
+
+    total_bytes = 0
+
+    @classmethod
+    def add(cls, tensor: torch.Tensor) -> None:
+        cls.total_bytes += tensor.numel() * tensor.element_size()
+
+
 class _SpanLog:
     """The spans recorded while a profiler is active: a bounded ring of
     records (the oldest dropped past ``size``), and each thread's stack of
@@ -153,7 +168,7 @@ class _Span:
         rec = {"name": self.name, "id": next(_LOG.ids),
                "parent": stack[-1]["id"] if stack else None,
                "thread": threading.get_ident(), "launches": Kernel.total_launches,
-               "drains": drains, "cuda": cuda}
+               "collective_bytes": Collectives.total_bytes, "drains": drains, "cuda": cuda}
         stack.append(rec)
         self.rec = rec
         rec["start_ns"] = time.perf_counter_ns()
@@ -163,6 +178,7 @@ class _Span:
         rec = self.rec
         rec["end_ns"] = time.perf_counter_ns()
         rec["launches"] = Kernel.total_launches - rec["launches"]
+        rec["collective_bytes"] = Collectives.total_bytes - rec["collective_bytes"]
         if rec["cuda"]:
             rec["drains"] += int(_LOG.stream().query())
         _LOG.stack().pop()
@@ -181,11 +197,12 @@ def span(name: str):
     order of entry); ``parent``, the id of the span open around it on the
     same thread, or None; ``thread``; ``start_ns`` and ``end_ns``
     (``time.perf_counter_ns``); ``launches``, the kernel launches of the
-    port inside it (``Kernel.total_launches``); ``cuda``, whether CUDA was
-    initialised at its entry; and ``drains``, how many of its entry and
-    exit found the current CUDA stream with nothing left to run (0 without
-    CUDA).  A span enqueues nothing on the stream, so an idle stream drains
-    at every boundary."""
+    port inside it (``Kernel.total_launches``); ``collective_bytes``, the
+    bytes handed to collectives inside it (:class:`Collectives`); ``cuda``,
+    whether CUDA was initialised at its entry; and ``drains``, how many of
+    its entry and exit found the current CUDA stream with nothing left to
+    run (0 without CUDA).  A span enqueues nothing on the stream, so an
+    idle stream drains at every boundary."""
     if not _profiler._is_profiler_enabled:
         return _OFF
     return _Span(name)
@@ -203,4 +220,5 @@ def clear_spans() -> None:
     _LOG.clear()
 
 
-__all__ = ["Counter", "MetricsLogger", "SPAN_LOG_SIZE", "clear_spans", "span", "span_records"]
+__all__ = ["Collectives", "Counter", "MetricsLogger", "SPAN_LOG_SIZE", "clear_spans", "span",
+           "span_records"]

@@ -1,9 +1,11 @@
 """The port's spans (utils/metrics.py ``span``) on the CPU: off, one shared
 object that does nothing; under ``torch.profiler``, ``record_function``
 ranges in the trace and records in the span log with their parents by
-thread, the log bounded; and the frame's and the fit step's spans where
-they belong."""
+thread, the log bounded; and the frame's, the fit step's and the sharded
+fit step's spans where they belong, the last with the bytes it hands to
+collectives."""
 
+import functools
 import json
 import sys
 import threading
@@ -15,6 +17,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from octree_raymarcher_tpu_torch.diff.composite import VoxelParams, init_params_from_world
 from octree_raymarcher_tpu_torch.diff.optim import photometric_loss, sample_views
+from octree_raymarcher_tpu_torch.parallel import (
+    init_distributed,
+    local_address,
+    make_mesh,
+    make_sharded_train_step,
+)
 from octree_raymarcher_tpu_torch.shade.camera import PerspectiveCamera
 from octree_raymarcher_tpu_torch.shade.render import RenderConfig, render_frame
 from octree_raymarcher_tpu_torch.utils import metrics
@@ -174,6 +182,52 @@ def test_fit_step_spans(scene):
     order = [r["name"] for r in sorted(recs, key=lambda r: r["id"]) if r["parent"] is None]
     assert order == ["fit.sample", "fit.loss", "fit.composite_bwd", "fit.composite_bwd"]
     assert params.density_raw.grad is not None
+
+
+@pytest.fixture
+def one_rank():
+    """A one-rank gloo group for the test, taken down after it."""
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()
+    init_distributed(local_address(), 1, 0, device="cpu")
+    try:
+        yield make_mesh("cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_step_spans(scene, one_rank):
+    """One overlapped step of four tiles: its ``fit.shard_step``, each
+    tile's two gradient ``fit.allreduce`` launches and the loss's, one
+    ``fit.allreduce_wait``, and 4 x 4P floats of gradient (plus the loss's
+    one) handed to collectives; off, the same step records nothing and
+    still counts its bytes."""
+    world, o, d, _ = scene
+    gt = init_params_from_world(world)
+    p = gt.num_slots
+    grads = 4 * 4 * p * 4
+    step = make_sharded_train_step(one_rank, world, functools.partial(torch.optim.Adam, lr=0.05),
+                                   max_segments=2, overlap=True, grad_tiles=4)
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    target = torch.zeros(o.shape[0], 3)
+    before = metrics.Collectives.total_bytes
+    params, state, _ = step(gt, None, world, o, d, target)
+    assert span_records() == []
+    assert metrics.Collectives.total_bytes - before == grads + 4
+    with _profiled():
+        step(params, state, world, o, d, target)
+    recs = span_records()
+    (unit,) = [r for r in recs if r["name"] == "fit.shard_step"]
+    assert unit["parent"] is None and unit["collective_bytes"] == grads + 4
+    reduces = sorted((r for r in recs if r["name"] == "fit.allreduce"), key=lambda r: r["id"])
+    assert len(reduces) == 4 * 2 + 1 and all(r["parent"] == unit["id"] for r in reduces)
+    assert [r["collective_bytes"] for r in reduces] == [4 * p, 12 * p] * 4 + [4]
+    (wait,) = [r for r in recs if r["name"] == "fit.allreduce_wait"]
+    assert wait["parent"] == unit["id"] and wait["collective_bytes"] == 0
+    assert reduces[7]["id"] < wait["id"] < reduces[8]["id"]    # the tiles', the wait, the loss's
+    composites = [r for r in recs if r["name"] == "fit.composite"]
+    assert len(composites) == 4 and all(r["parent"] == unit["id"] for r in composites)
 
 
 @pytest.mark.cuda
